@@ -1,0 +1,6 @@
+"""Blockwise GQA flash-attention forward (CUDA kernel + plain version)."""
+
+from .ops import flash_attention
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "attention_ref"]
