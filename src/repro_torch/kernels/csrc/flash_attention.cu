@@ -4,7 +4,9 @@
 // flash_attention_fwd (body _kernel).  q [b, sq, n_q, hd] attends
 // k/v [b, sk, n_kv, hd], query head h reading KV head h / (n_q / n_kv),
 // queries and keys both starting at position 0.  Mask: k_pos < sk, plus
-// k_pos <= q_pos when causal.  Masked scores are -1e30, the running max
+// k_pos <= q_pos when causal, plus k_pos > q_pos - window when a local
+// window is set (as in the plain gqa_attention and the paged kernel; the
+// TPU kernel has no window).  Masked scores are -1e30, the running max
 // starts at -1e30, the online softmax runs in float32, and the output is
 // acc / max(l, 1e-30), as in the TPU kernel.  It computes the serving
 // prefill's attention.
@@ -21,7 +23,8 @@
 // (b * n_q + h, 64-row query tile); each of its 64 threads owns one
 // query row and keeps that row's q, its float32 accumulator, running max
 // and sum in registers.  The block loops over 64-key K/V tiles (fewer
-// keys per tile for head_dim 128) only up to the causal limit of its
+// keys per tile for head_dim 128) from the first key inside the window
+// of its first row (key 0 without a window) up to the causal limit of its
 // query tile, staging each tile in shared memory as float32, so every K/V
 // tile is read from device memory once per query tile rather than once
 // per query row.  All threads read the same K/V element at the same time
@@ -64,7 +67,7 @@ __global__ void __launch_bounds__(kBQ)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int sq, int sk, int n_q, int n_kv, int causal,
-                           float scale) {
+                           int window, float scale) {
   constexpr int BK = tile_keys<HD>();
   constexpr int HD4 = HD / 4;
   static_assert(HD % 4 == 0 && BK % kChunk == 0, "tile shape");
@@ -90,12 +93,16 @@ __global__ void __launch_bounds__(kBQ)
   float m = kNegInf;
   float l = 0.f;
 
-  // keys this query tile can see: all of them, or up to its last row
+  // keys this query tile can see: all of them, or up to its last row,
+  // and with a window none before its first row's window.  Skipping the
+  // leading fully-masked keys changes nothing for a row that sees a key:
+  // the first real score resets l and acc through alpha = 0.
   const int k_end = causal ? min(sk, min(sq, q0 + kBQ)) : sk;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   float* ks = reinterpret_cast<float*>(k_s);
   float* vs = reinterpret_cast<float*>(v_s);
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < BK * HD; i += kBQ) {
       const int t = i / HD, d = i % HD;
@@ -127,7 +134,8 @@ __global__ void __launch_bounds__(kBQ)
           dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
         }
         const int kp = k0 + c + j;
-        const bool ok = kp < sk && (!causal || kp <= row);
+        const bool ok = kp < sk && (!causal || kp <= row) &&
+                        (window <= 0 || kp > row - window);
         s[j] = ok ? dot * scale : kNegInf;
         cmax = fmaxf(cmax, s[j]);
       }
@@ -163,29 +171,32 @@ __global__ void __launch_bounds__(kBQ)
 
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int b,
-              int sq, int sk, int n_q, int n_kv, int causal, float scale,
-              cudaStream_t stream) {
+              int sq, int sk, int n_q, int n_kv, int causal, int window,
+              float scale, cudaStream_t stream) {
   const dim3 grid(b * n_q, (sq + kBQ - 1) / kBQ);
   flash_attention_kernel<T, HD><<<grid, kBQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, n_q, n_kv,
-      causal, scale);
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int sk, int n_q, int n_kv, int hd, int causal, float scale,
-           void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || n_kv <= 0 || n_q % n_kv != 0)
+           int sq, int sk, int n_q, int n_kv, int hd, int causal, int window,
+           float scale, void* stream) {
+  // a window needs causal self-attention with sk >= sq, so that every row
+  // sees at least its own key
+  if (b <= 0 || sq <= 0 || sk <= 0 || n_kv <= 0 || n_q % n_kv != 0 ||
+      (window > 0 && (!causal || sk < sq)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 8: return launch_hd<T, 8>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, scale, s);
-    case 16: return launch_hd<T, 16>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, scale, s);
-    case 32: return launch_hd<T, 32>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, scale, s);
-    case 64: return launch_hd<T, 64>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, scale, s);
-    case 128: return launch_hd<T, 128>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, scale, s);
+    case 8: return launch_hd<T, 8>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
+    case 16: return launch_hd<T, 16>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
+    case 32: return launch_hd<T, 32>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
+    case 64: return launch_hd<T, 64>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
+    case 128: return launch_hd<T, 128>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -193,22 +204,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // q [b, sq, n_q, hd]; k/v [b, sk, n_kv, hd]; out [b, sq, n_q, hd], all
-// contiguous.  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() after the launch.
+// contiguous.  window <= 0 means no window.  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* out, int b,
                                        int sq, int sk, int n_q, int n_kv,
-                                       int hd, int causal, float scale,
-                                       void* stream) {
-  return launch<float>(q, k, v, out, b, sq, sk, n_q, n_kv, hd, causal, scale,
-                       stream);
+                                       int hd, int causal, int window,
+                                       float scale, void* stream) {
+  return launch<float>(q, k, v, out, b, sq, sk, n_q, n_kv, hd, causal, window,
+                       scale, stream);
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* out, int b,
                                         int sq, int sk, int n_q, int n_kv,
-                                        int hd, int causal, float scale,
-                                        void* stream) {
+                                        int hd, int causal, int window,
+                                        float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, out, b, sq, sk, n_q, n_kv, hd, causal,
-                               scale, stream);
+                               window, scale, stream);
 }

@@ -29,14 +29,15 @@ def _fn(dtype: torch.dtype):
     if fn is None:
         fn = getattr(_build.library("flash_attention"),
                      f"flash_attention_fwd_{_SUFFIX[dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int | None) -> None:
     if not q.is_cuda:
         raise ValueError("flash_attention impl='cuda' needs CUDA tensors")
     if q.dtype not in _SUFFIX:
@@ -55,26 +56,33 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "disagree on batch, head width or GQA grouping")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if window is not None and (window < 1 or not causal
+                               or k.shape[1] < q.shape[1]):
+        raise ValueError(f"window {window} needs window >= 1, causal=True "
+                         "and sk >= sq (every row sees its own key)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: float | None = None,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
                     impl: str | None = None) -> torch.Tensor:
     """Blockwise GQA attention forward, queries and keys from position 0.
 
     q ``[b, sq, n_q, hd]``, k/v ``[b, sk, n_kv, hd]`` -> ``[b, sq, n_q,
-    hd]`` in q's dtype.  ``causal`` masks ``k_pos > q_pos``.
+    hd]`` in q's dtype.  ``causal`` masks ``k_pos > q_pos``; ``window``
+    keeps only ``k_pos > q_pos - window`` (a local window).
     """
     if impl is None:
         impl = "cuda" if q.is_cuda else "ref"
     if impl == "ref":
-        return attention_ref(q, k, v, causal=causal, scale=scale)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
     if impl != "cuda":
         raise ValueError(f"unknown flash_attention impl {impl!r}")
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     b, sq, n_q, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     scale = (hd ** -0.5) if scale is None else scale
@@ -82,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), b, sq, sk, n_q, n_kv, hd, int(causal),
-                       scale, stream)
+                       -1 if window is None else int(window), scale, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

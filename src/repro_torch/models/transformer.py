@@ -58,7 +58,6 @@ class LMConfig:
     window: int | None = None             # local attention window
     param_dtype: str = "bfloat16"
     remat: bool = True
-    attn_impl: str = "einsum"
     # MoE / MLA / MTP: not ported yet (DecoderLM raises)
     moe: Any = None
     n_dense_layers: int = 0
@@ -219,10 +218,7 @@ class DecoderLM:
             q, k, v = self._project_qkv(p, h, positions)
             ck[i, :, :s] = k
             cv[i, :, :s] = v
-            if cfg.window is None:
-                out = flash_attention(q, k, v, causal=True)
-            else:       # the flash kernel has no window mask
-                out = gqa_attention(q, k, v, causal=True, window=cfg.window)
+            out = flash_attention(q, k, v, causal=True, window=cfg.window)
             return out.reshape(b, s, -1) @ p["wo"]["w"]
 
         x = self._blocks(params, x, attend)

@@ -186,6 +186,23 @@ def test_flash_ref_matches_jax_kernel(b, sq, sk, nq, nkv, hd, causal, dtype):
     _close(got, want, _TOL[dtype])
 
 
+@pytest.mark.parametrize("window", [1, 7, 70])
+def test_flash_ref_windowed_matches_jax_attention(window):
+    """The JAX flash kernel has no window; windowed prefill in the
+    reference is ``gqa_attention(causal=True, window=...)``."""
+    from repro.models.layers import gqa_attention as jax_gqa
+    rng = np.random.default_rng(window)
+    b, s, nq, nkv, hd = 2, 100, 4, 2, 16
+    q = rng.standard_normal((b, s, nq, hd), np.float32)
+    k = rng.standard_normal((b, s, nkv, hd), np.float32)
+    v = rng.standard_normal((b, s, nkv, hd), np.float32)
+    got = flash_attention(_to_torch(q, "float32"), _to_torch(k, "float32"),
+                          _to_torch(v, "float32"), causal=True, window=window)
+    want = jax_gqa(_to_jax(q, "float32"), _to_jax(k, "float32"),
+                   _to_jax(v, "float32"), causal=True, window=window)
+    _close(got, want, _TOL["float32"])
+
+
 def test_cpu_tensors_take_the_plain_version_and_cuda_impl_raises():
     q = torch.zeros(1, 4, 2, 8)
     before = flash_attention.launches
@@ -269,6 +286,18 @@ class TestCudaKernels:
         _close(got, flash_attention(q, k, v, causal=causal, impl="ref"),
                _KERNEL_TOL[dtype])
 
+    @pytest.mark.parametrize("window", [1, 5, 64, 100, 1000])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_flash_kernel_windowed(self, cuda, window, dtype):
+        rng = np.random.default_rng(window)
+        q, k, v = (_to_torch(rng.standard_normal(shape, np.float32), dtype,
+                             cuda)
+                   for shape in ((2, 200, 8, 64), (2, 200, 2, 64),
+                                 (2, 200, 2, 64)))
+        _close(flash_attention(q, k, v, window=window),
+               flash_attention(q, k, v, window=window, impl="ref"),
+               _KERNEL_TOL[dtype])
+
     def test_wrappers_reject_what_the_kernels_do_not_take(self, cuda):
         q = torch.zeros(1, 4, 2, 24, device=cuda)
         with pytest.raises(ValueError, match="head_dim"):
@@ -279,6 +308,10 @@ class TestCudaKernels:
         with pytest.raises(ValueError, match="contiguous"):
             t = torch.zeros(1, 2, 4, 8, device=cuda).transpose(1, 2)
             flash_attention(t, t, t)
+        w = torch.zeros(1, 4, 2, 8, device=cuda)
+        for window, causal in ((0, True), (4, False)):
+            with pytest.raises(ValueError, match="window"):
+                flash_attention(w, w, w, causal=causal, window=window)
         args = list(_paged_both(_paged_case(1, 2, 4, 2, 8, 4, 2),
                                 "float32", cuda))
         args[3] = args[3].long()
