@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve,
+train.
 
     python3 chip_smoke.py
 
@@ -10,11 +11,17 @@ code is non-zero):
 2. ``build``   — compile every kernel of ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, in parallel).
 3. ``kernel``  — each kernel against its plain PyTorch version on the
-   card at the serving slice's full-width shapes (the serve phase's own
-   geometry first, then deeper, wider and windowed cases), in bfloat16
-   and float32, held to ``atol + rtol * |plain in float32|``; median
-   CUDA-event times of the kernel, the plain version and, where one
-   exists, a library call; the least time the card could take (bound).
+   card at its path's full-width shapes, with median CUDA-event times of
+   the kernel, the plain version and, where one exists, a library call,
+   and the least time the card could take (bound).  Attention kernels
+   (the serve phase's own geometry first, then deeper, wider and
+   windowed cases), in bfloat16 and float32, held to ``atol + rtol *
+   |plain in float32|``.  Training kernels at the train phase's
+   geometry: fused AdamW on the largest leaf (``blocks.mlp.gate.w``,
+   ``[4, 8, 2048, 8192]``) in bfloat16 and float32, held to ``atol +
+   rtol * |plain|``; the int8 row kernels on one phase's block slices
+   (``[R, 8192]``, ``[R, 2048]``) and the embedding leaf, codes, scales
+   and values **equal** to the plain version's.
 4. ``reference`` — granite-3-2b SMOKE (float32) served by the paged
    engine on the card (through both kernels) must emit exactly the
    greedy tokens of the plain naive loop on the CPU, same weights.
@@ -26,6 +33,23 @@ code is non-zero):
 6. ``profile`` — decode ticks alone under ``torch.profiler``: device
    time per tick by kernel class, to set beside the serve phase's
    unprofiled ms per tick.
+7. ``train_reference`` — granite-3-2b SMOKE (float32), W=2, H=5, 10
+   steps of ``Session.fit`` for ``dreamddp`` and ``dreamddp-int8`` on the
+   card (through the training kernels) and on the CPU (plain versions)
+   from the same initial parameters and batches: per-step losses and
+   final parameters within the float32 tolerances of ``TRAIN_REF_TOL``.
+8. ``train``   — granite-3-2b at published widths, depth cut 40 -> 8 and
+   workers 8 -> 4 (the worker-stacked state has to fit one card),
+   bfloat16, ``Session(JobConfig(workers=4, period=5,
+   batch_per_worker=4, seq=512, smoke=False))`` for 10 steps with
+   ``dreamddp``, then 10 with ``dreamddp-int8`` in a fresh session.
+   Launch counters are set to 0 just before each ``fit`` and read just
+   after: fused AdamW must run 11 x steps, the int8 kernels in the int8
+   run.  Reports ms/step (the second period's time / H), tokens/s,
+   MFU, peak memory, first and last loss (finite, falling).
+9. ``train_profile`` — one more period of the int8 session under
+   ``torch.profiler``: device ms per step by kernel class and the
+   device's busy share of the wall time.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -33,7 +57,10 @@ Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,14 +73,20 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.api import JobConfig, Session  # noqa: E402
 from repro_torch.configs import granite_3_2b  # noqa: E402
+from repro_torch.core.partial_sync import contiguous_ranges  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.fused_adam_sync import fused_adamw  # noqa: E402
+from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
+                                            quantize_rows)
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.models.layers import count_params  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
                                ServeEngine)
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 3.35 TB/s,
 # bf16 tensor cores 989 TFLOP/s, float32 outside the tensor cores 67.
@@ -412,6 +445,449 @@ def profile_decode(model, params, engine_cfg) -> dict:
     }
 
 
+# ---------------------------------------------------------------- training
+
+# The train phase's job: granite-3-2b at published widths, depth 40 -> 8
+# and workers 8 -> 4 so the worker-stacked state fits one card.
+TRAIN_LAYERS, TRAIN_WORKERS, TRAIN_H, TRAIN_B, TRAIN_S = 8, 4, 5, 4, 512
+TRAIN_STEPS = 10
+TRAIN_MODEL = dataclasses.replace(granite_3_2b.CONFIG, n_layers=TRAIN_LAYERS)
+ADAM_FLOPS_PER_ELEMENT = 15        # mul/add/div/sqrt of one AdamW update
+# fused AdamW against its plain version: the same correctly rounded
+# float32 operations, so only powf in the bias corrections may differ in
+# the last place; bfloat16 p may then round to the neighbouring value
+# (one bfloat16 ulp, 2^-8 relative).
+ADAM_TOL = {torch.float32: (1e-7, 1e-6), torch.bfloat16: (1e-7, 7.9e-3)}
+# train_reference, card against CPU after 10 steps of float32 smoke
+# training.  Losses: summation order of the float32 matmuls (cuBLAS
+# against the CPU's).  Parameters: 99.9% within bulk_atol; the rest
+# within max_atol, since Adam turns the rounding noise of a near-zero
+# gradient into a step of up to lr (3e-3 at most here); with int8 syncs
+# 99% within bulk_atol and the rest within one code's quantum of their
+# leaf's scale (max|p| / 127) plus max_atol, since a value near a rounding
+# boundary may take the next code.
+TRAIN_REF_TOL = {
+    "dreamddp": {"loss_rtol": 1e-4, "bulk_atol": 1e-4, "share": 1e-3,
+                 "max_atol": 3e-3, "quantum": False},
+    "dreamddp-int8": {"loss_rtol": 1e-3, "bulk_atol": 1e-4, "share": 1e-2,
+                      "max_atol": 3e-3, "quantum": True},
+}
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_job(algo: str) -> JobConfig:
+    return JobConfig(arch="granite-3-2b", algo=algo, workers=TRAIN_WORKERS,
+                     period=TRAIN_H, batch_per_worker=TRAIN_B, seq=TRAIN_S,
+                     smoke=False)
+
+
+def int8_slice_rows() -> tuple[int, str]:
+    """Layers in the longest contiguous block range that one phase of the
+    train phase's ``dreamddp-int8`` plan syncs."""
+    sess = Session(train_job("dreamddp-int8"), model=DecoderLM(TRAIN_MODEL),
+                   device="cuda")
+    layout = sess.model.unit_layout()
+    best = (0, "")
+    for h, units in enumerate(sess.plan.phase_units):
+        idx = [layout.entries[u].index for u in units
+               if layout.entries[u].group == "blocks"]
+        for lo, hi in contiguous_ranges(idx):
+            if hi - lo > best[0]:
+                best = (hi - lo, f"phase {h}, layers {lo}..{hi - 1}")
+    if not best[0]:
+        raise RuntimeError("the int8 plan syncs no block layer")
+    return best
+
+
+def adam_case(dtype, shape):
+    """The largest leaf of the train phase, worker-stacked."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    n = math.prod(shape)
+
+    def rand(scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(scale)
+
+    p = rand().to(dtype)
+    g, m = rand(), rand(0.1)
+    v = rand().abs_().mul_(0.01)
+    hyper = torch.tensor([3e-3, 0.9, 0.999, 1e-8, 0.0, 6.0], device="cuda")
+    nbytes = n * (2 * p.element_size() + 5 * 4)  # p, m, v in+out; g in
+    return (p, g, m, v, hyper), nbytes, ADAM_FLOPS_PER_ELEMENT * n
+
+
+def fused_adam_library(a: list, hyper: torch.Tensor):
+    """Time of ``torch._fused_adam_`` (adam with weight decay 0, the same
+    function) on the same tensors, as a yardstick the port never calls.
+    It is asked to take the kernel's dtypes as they are; where it refuses
+    (bfloat16 p with float32 g, m, v) its message is the reason there is
+    no time."""
+    step = hyper[5].clone()
+    lr, b1, b2, eps, wd = (float(x) for x in hyper[:5])
+
+    def call():
+        torch._fused_adam_([a[0]], [a[1]], [a[2]], [a[3]], [], [step],
+                           lr=lr, beta1=b1, beta2=b2, weight_decay=wd,
+                           eps=eps, amsgrad=False, maximize=False)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:          # the op's dtype check, not a fault
+        return None, f"none: torch._fused_adam_ refused these dtypes ({e})"
+    return median_ms(call), "torch._fused_adam_ (adam, weight_decay 0)"
+
+
+def check_adam() -> dict:
+    """fused AdamW against its plain version on the largest leaf, bfloat16
+    (the train phase's) then float32; torch._fused_adam_ as a yardstick
+    where it takes the dtypes."""
+    shape = (TRAIN_WORKERS, TRAIN_LAYERS, TRAIN_MODEL.d_model,
+             TRAIN_MODEL.d_ff)
+    checks = []
+    for dtype in DTYPES:
+        args, nbytes, flops = adam_case(dtype, shape)
+        a = [t.clone() for t in args[:4]]
+        b = [t.clone() for t in args[:4]]
+        fused_adamw(*a, args[4], impl="cuda")
+        fused_adamw(*b, args[4], impl="ref")
+        torch.cuda.synchronize()
+        err, excess = 0.0, -1.0
+        for x, y in zip(a, b, strict=True):
+            atol, rtol = ADAM_TOL[x.dtype]
+            if not torch.isfinite(x.float()).all():
+                raise RuntimeError(f"fused_adamw {dtype}: non-finite output")
+            d = (x.float() - y.float()).abs()
+            err = max(err, d.max().item())
+            excess = max(excess,
+                         (d - atol - rtol * y.float().abs()).max().item())
+        if excess > 0:
+            raise RuntimeError(f"fused_adamw {dtype}: max abs err {err} "
+                               f"beyond its tolerance")
+        del b
+        _free()
+        ms = median_ms(lambda: fused_adamw(*a, args[4], impl="cuda"))
+        plain = [t.clone() for t in args[:4]]
+        plain_ms = median_ms(lambda: fused_adamw(*plain, args[4],
+                                                 impl="ref"), reps=10)
+        del plain
+        _free()
+        library, reason = fused_adam_library(a, args[4])
+        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        row = {"shape": f"{list(shape)} (blocks.mlp.gate.w), "
+                        f"{math.prod(shape)} elements",
+               "dtype": str(dtype).removeprefix("torch."),
+               "max_abs_err": err, "atol_rtol": ADAM_TOL[dtype],
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": library,
+               "library": reason, "bytes": nbytes, "flops": flops}
+        emit({"phase": "kernel", "name": "fused_adamw", **row})
+        checks.append(row)
+        del a, args
+        _free()
+    return {"name": "fused_adamw", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_adam_sync.cu",
+            "replaces": "src/repro/kernels/fused_adam_sync/kernel.py:60",
+            "checks": checks}
+
+
+def check_int8() -> list[dict]:
+    """quantize_rows / dequantize_rows against their plain versions on the
+    rows the int8 sync hands them: one phase's block slices of
+    blocks.mlp.gate.w ([R, 8192]) and blocks.mlp.down.w ([R, 2048]), and
+    the embedding leaf ([W * vocab, 2048]); codes, scales and values must
+    be equal."""
+    k, where = int8_slice_rows()
+    d, f, w = TRAIN_MODEL.d_model, TRAIN_MODEL.d_ff, TRAIN_WORKERS
+    cases = [(w * k * d, f, f"gate.w slice ({where})"),
+             (w * k * f, d, f"down.w slice ({where})"),
+             (w * TRAIN_MODEL.vocab, d, "embed.table")]
+    rows = {"quantize_rows": [], "dequantize_rows": []}
+    gen = torch.Generator("cuda").manual_seed(8)
+    for r, c, what in cases:
+        x = torch.randn(r, c, generator=gen, device="cuda").mul_(0.02)
+        x[0] = 0.0                                   # a zero row
+        q, s = quantize_rows(x, impl="cuda")
+        qr, sr = quantize_rows(x, impl="ref")
+        out = dequantize_rows(q, s, impl="cuda")
+        out_r = dequantize_rows(qr, sr, impl="ref")
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qr) and torch.equal(s, sr)
+                and torch.equal(out, out_r)):
+            raise RuntimeError(
+                f"int8 {what} [{r}, {c}]: codes {(q != qr).sum().item()}, "
+                f"scales {(s != sr).sum().item()}, values "
+                f"{(out != out_r).sum().item()} differ from the plain "
+                "version")
+        n = r * c
+        shape = f"[{r}, {c}] {what}"
+        # yardstick only, the port never calls it: one promoting multiply
+        # computes float(q) * s, bit for bit the kernel's function
+        torch_mul = (lambda: torch.mul(q, s))
+        if not torch.equal(torch_mul(), out):
+            raise RuntimeError(f"int8 {what}: torch.mul(q, s) differs from "
+                               "the dequantize kernel")
+        for name, fn, ref, library, reason, nbytes, flops in (
+                ("quantize_rows", lambda: quantize_rows(x, impl="cuda"),
+                 lambda: quantize_rows(x, impl="ref"), None,
+                 "none: no single PyTorch call", n * 5 + r * 4, 5 * n),
+                ("dequantize_rows",
+                 lambda: dequantize_rows(q, s, impl="cuda"),
+                 lambda: dequantize_rows(q, s, impl="ref"), torch_mul,
+                 "torch.mul(q, scale)", n * 5 + r * 4, n)):
+            b_ms, b_by = bound(nbytes, flops, torch.float32)
+            row = {"shape": shape, "dtype": "float32 -> int8" if
+                   name == "quantize_rows" else "int8 -> float32",
+                   "max_abs_err": 0.0, "ms": median_ms(fn),
+                   "plain_ms": median_ms(ref, reps=10), "bound_ms": b_ms,
+                   "bound_by": b_by,
+                   "library_ms": median_ms(library) if library else None,
+                   "library": reason, "bytes": nbytes, "flops": flops}
+            emit({"phase": "kernel", "name": name, **row})
+            rows[name].append(row)
+        del x, q, s, qr, sr, out, out_r
+        _free()
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/int8_quant.cu",
+             "replaces": f"src/repro/kernels/int8_quant/kernel.py:{line}",
+             "checks": rows[name]}
+            for name, line in (("quantize_rows", 42),
+                               ("dequantize_rows", 63))]
+
+
+def _reset_train_counts() -> None:
+    fused_adamw.launches = 0
+    quantize_rows.launches = 0
+    dequantize_rows.launches = 0
+
+
+def _train_counts() -> dict:
+    return {"fused_adamw": fused_adamw.launches,
+            "quantize_rows": quantize_rows.launches,
+            "dequantize_rows": dequantize_rows.launches}
+
+
+def train_reference() -> dict:
+    """SMOKE (float32), W=2, H=5: 10 steps of Session.fit on the card
+    (through the kernels) against the same on the CPU (plain versions),
+    same initial parameters and batches."""
+    out = {"phase": "train_reference"}
+    for algo, tol in TRAIN_REF_TOL.items():
+        job = JobConfig(algo=algo, workers=2, period=5)
+        card = Session(job, device="cuda")
+        cpu = Session(job, device="cpu")
+        for x, y in zip(tree_leaves(cpu.state.params),
+                        tree_leaves(card.state.params), strict=True):
+            x.copy_(y.cpu())
+        _reset_train_counts()
+        card.fit(10)
+        counts = _train_counts()
+        cpu.fit(10)
+        if counts["fused_adamw"] != 11 * 10 or (
+                algo == "dreamddp-int8") != (counts["quantize_rows"] > 0):
+            raise RuntimeError(f"train_reference {algo}: launches {counts}")
+        lc = np.array([h["loss"] for h in card.history])
+        lp = np.array([h["loss"] for h in cpu.history])
+        loss_err = float(np.max(np.abs(lc - lp) / np.abs(lp)))
+        if not np.isfinite(lc).all() or loss_err > tol["loss_rtol"]:
+            raise RuntimeError(f"train_reference {algo}: losses {lc} vs "
+                               f"{lp}")
+        worst, share = 0.0, 0.0
+        for x, y in zip(tree_leaves(card.state.params),
+                        tree_leaves(cpu.state.params), strict=True):
+            d = (x.cpu() - y).abs()
+            limit = tol["max_atol"] + (y.abs().max().item() / 127
+                                       if tol["quantum"] else 0.0)
+            frac = (d > tol["bulk_atol"]).float().mean().item()
+            if d.max().item() > limit or frac > tol["share"]:
+                raise RuntimeError(
+                    f"train_reference {algo}: params differ by up to "
+                    f"{d.max().item()} (limit {limit}), {frac} beyond "
+                    f"{tol['bulk_atol']}")
+            worst, share = max(worst, d.max().item()), max(share, frac)
+        out[algo] = {"steps": 10, "losses_card": lc.tolist(),
+                     "max_loss_rel_err": loss_err,
+                     "max_param_abs_err": worst,
+                     "max_share_beyond_bulk_atol": share,
+                     "launches": counts, "tolerance": tol}
+        del card, cpu
+        _free()
+    return out
+
+
+def train_flops_per_step(model: DecoderLM) -> float:
+    """6 N per token (forward and backward of every parameter) plus the
+    attention products (QK and PV over the causal-unmasked full length,
+    forward and backward), for one step of every worker; remat's
+    recomputation is not counted."""
+    cfg = model.cfg
+    tokens = TRAIN_WORKERS * TRAIN_B * TRAIN_S
+    attn = 3 * 2.0 * tokens * TRAIN_S * cfg.n_heads * cfg.hd * 2 \
+        * cfg.n_layers
+    return 6.0 * model.param_count() * tokens + attn
+
+
+def train(algo: str, *, keep: bool = False):
+    """One fresh full-width session, TRAIN_STEPS steps, counts around the
+    fit."""
+    model = DecoderLM(TRAIN_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    sess = Session(train_job(algo), model=model, device="cuda")
+    plan = sess.plan
+    sess.state                                       # build the state
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    sess.fit(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _train_counts()
+    losses = [h["loss"] for h in sess.history]
+    second = [h["time"] for h in sess.history[TRAIN_H:2 * TRAIN_H]]
+    ms = statistics.median(second) * 1e3
+    tokens = TRAIN_WORKERS * TRAIN_B * TRAIN_S
+    flops = train_flops_per_step(model)
+    if counts["fused_adamw"] != 11 * TRAIN_STEPS:
+        raise RuntimeError(f"train {algo}: fused_adamw launched "
+                           f"{counts['fused_adamw']} times, want "
+                           f"{11 * TRAIN_STEPS}")
+    if (algo == "dreamddp-int8") != (counts["quantize_rows"] > 0
+                                     and counts["dequantize_rows"] > 0):
+        raise RuntimeError(f"train {algo}: int8 launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"train {algo}: losses {losses}")
+    result = {
+        "phase": "train", "algo": algo, "arch": TRAIN_MODEL.name,
+        "layers": TRAIN_LAYERS, "d_model": TRAIN_MODEL.d_model,
+        "reduced": {"n_layers": "40 -> 8", "workers": "8 -> 4"},
+        "dtype": TRAIN_MODEL.param_dtype, "workers": TRAIN_WORKERS,
+        "H": TRAIN_H, "batch_per_worker": TRAIN_B, "seq": TRAIN_S,
+        "params_per_replica": model.param_count(),
+        "plan": {"phase_units": [list(u) for u in plan.phase_units],
+                 "units_per_phase": [len(u) for u in plan.phase_units],
+                 "fingerprint": plan.fingerprint()},
+        "steps": TRAIN_STEPS, "wall_s": wall,
+        # the fused runner stamps every step of a period with the
+        # period's time / H, so each figure is one period's mean
+        "ms_per_step": ms, "ms_per_step_first_period":
+            statistics.median(h["time"] for h in sess.history[:TRAIN_H])
+            * 1e3,
+        "ms_per_step_both_periods":
+            statistics.fmean(h["time"] for h in sess.history) * 1e3,
+        "tokens_per_s": tokens / (ms / 1e3),
+        "flops_per_step": flops,
+        "mfu": flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+        "state_bytes": state_bytes,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "losses": losses, "launches": counts,
+    }
+    if keep:
+        return result, sess
+    del sess
+    _free()
+    return result, None
+
+
+def _train_class(name: str) -> str:
+    low = name.lower()
+    if "fused_adamw" in low:
+        return "optimizer kernel"
+    if "quantize_rows" in low:
+        return "int8 kernels"
+    if any(s in low for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                              "cublas")):
+        return "matmuls (attention products included)"
+    if "softmax" in low:
+        return "attention softmax"
+    if "memcpy" in low or "memset" in low or "copy" in low:
+        return "copies and casts"
+    if "reduce" in low:
+        return "reductions (sync means, norms, loss)"
+    return "other elementwise"
+
+
+def train_profile(sess, unprofiled_ms: float) -> dict:
+    """One more period of ``sess`` under torch.profiler: device ms per
+    step by kernel class; device ms in the step's optimizer and sync
+    ranges (``repro_torch.optimizer``, ``repro_torch.sync``: kernels
+    launched inside them; the forward and backward are the rest); the
+    share of the profiled wall time in which some kernel or copy ran
+    (merged intervals); and device ms over the unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.fit(TRAIN_H)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms: dict[str, float] = {}
+    count: dict[str, int] = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        cls = _train_class(ev.name)
+        ms[cls] = ms.get(cls, 0.0) + ev.time_range.elapsed_us() / 1e3
+        count[cls] = count.get(cls, 0) + 1
+        spans.append((ev.time_range.start, ev.time_range.end))
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ranges = {}
+    for ev in prof.key_averages():
+        if ev.key in ("repro_torch.optimizer", "repro_torch.sync"):
+            total = getattr(ev, "device_time_total", None)
+            if total is None:
+                total = ev.cuda_time_total
+            ranges[ev.key] = total / 1e3 / TRAIN_H
+    device_ms = sum(ms.values()) / TRAIN_H
+    ranges["forward and backward (the rest)"] = device_ms - sum(
+        ranges.values())
+    return {
+        "phase": "train_profile", "algo": sess.cfg.algo, "steps": TRAIN_H,
+        "wall_ms_per_step": wall * 1e3 / TRAIN_H,
+        "device_ms_per_step": device_ms,
+        "device_ms_per_step_by_class": {k: v / TRAIN_H
+                                        for k, v in ms.items()},
+        "launches_per_step_by_class": {k: v / TRAIN_H
+                                       for k, v in count.items()},
+        "device_ms_per_step_by_range": ranges,
+        "busy_share": busy / 1e3 / (wall * 1e3),
+        "unprofiled_ms_per_step": unprofiled_ms,
+        "device_ms_over_unprofiled_step": device_ms / unprofiled_ms,
+    }
+
+
+def kernel_rows(kernels: list[dict], launches: dict) -> list[dict]:
+    """The kernels line's rows: each kernel's first check (its path's own
+    geometry and working dtype) and its launches on the path's run."""
+    rows = []
+    for k in kernels:
+        main_row = k["checks"][0]
+        rows.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"], "launches": launches[k["name"]],
+            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"], "dtype": main_row["dtype"],
+            "checks": k["checks"],
+        })
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -431,7 +907,6 @@ def main() -> int:
 
     kernels = [check_kernel(k) for k in KERNELS]
     emit(reference_check())
-
     model = DecoderLM(granite_3_2b.CONFIG)      # full width and depth
     params = model.init(torch.Generator("cuda").manual_seed(0))
     if count_params(params) != model.param_count():
@@ -441,22 +916,27 @@ def main() -> int:
     result = serve(model, params, engine_cfg)
     emit(result)
     emit(profile_decode(model, params, engine_cfg))
+    del model, params
+    _free()
+    rows = kernel_rows(kernels, result["launches"])
 
-    rows = []
-    for k in kernels:
-        main_row = k["checks"][0]      # serve geometry, bfloat16
-        rows.append({
-            "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"],
-            "launches": result["launches"][k["name"]],
-            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"],
-            "shape": main_row["shape"], "dtype": main_row["dtype"],
-            "checks": k["checks"],
-        })
+    kernels = [check_adam(), *check_int8()]
+    emit(train_reference())
+    plain, _ = train("dreamddp")
+    emit(plain)
+    int8, sess = train("dreamddp-int8", keep=True)
+    emit(int8)
+    emit(train_profile(sess, int8["ms_per_step"]))
+    del sess
+    _free()
+    # each kernel's launches from the run of its own path: the
+    # optimizer's from the default algo, the int8 kernels' from the
+    # int8 run
+    rows += kernel_rows(kernels, {
+        "fused_adamw": plain["launches"]["fused_adamw"],
+        "quantize_rows": int8["launches"]["quantize_rows"],
+        "dequantize_rows": int8["launches"]["dequantize_rows"]})
+
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library", "build_logs"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "paged_attention")
+SOURCES = ("flash_attention", "paged_attention", "fused_adam_sync",
+           "int8_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

@@ -15,8 +15,12 @@ one): a full-width pool is too large to copy per token.
 
 Prefill attention goes through the flash kernel (CUDA on the card, its
 plain version on the CPU); paged decode goes through the paged kernel.
-Contiguous decode and the training-style ``apply`` use the plain
-:func:`~repro_torch.models.layers.gqa_attention`, as the reference does.
+Contiguous decode, ``apply`` and the training ``loss`` use the plain
+:func:`~repro_torch.models.layers.gqa_attention`, as the reference does
+(it trains on jnp attention outside any Pallas kernel, ROADMAP.md C3).
+With ``remat`` each block of the training forward is recomputed in the
+backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``).
 
 MoE, MLA and multi-token prediction are not ported yet.
 """
@@ -27,12 +31,14 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..core.partial_sync import UnitEntry, UnitLayout
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention, write_token_to_pages
 from .layers import (apply_rope, dense, dense_init, embed, embed_init,
                      gqa_attention, layer_norm, mlp_apply, mlp_init,
-                     norm_init, rms_norm, rope_freqs)
+                     norm_init, rms_norm, rope_freqs, softmax_xent)
 
 __all__ = ["LMConfig", "DecoderLM"]
 
@@ -83,8 +89,9 @@ def _layer(tree: Tree, i: int) -> Tree:
 
 
 class DecoderLM:
-    """Functional dense decoder LM (init / apply / prefill / decode,
-    contiguous and paged)."""
+    """Functional dense decoder LM (init / apply / loss / prefill /
+    decode, contiguous and paged; unit layout and analytic costs for the
+    planner)."""
 
     # cache entries are addressed by position and masked by valid length,
     # so right-padded (chunked) prefill cannot leak into decode
@@ -157,14 +164,23 @@ class DecoderLM:
         return (rms_norm(p, x) if self.cfg.norm_kind == "rmsnorm"
                 else layer_norm(p, x))
 
-    def _blocks(self, params, x, attend):
+    def _block(self, attend, i, p, x):
+        x = x + attend(i, p["attn"], self._norm(p["ln1"], x))
+        return x + mlp_apply(p["mlp"], self._norm(p["ln2"], x),
+                             kind=self.cfg.mlp_kind)
+
+    def _blocks(self, params, x, attend, *, remat: bool = False):
         """Run the block stack; ``attend(layer, p_attn, h)`` is the
-        attention sub-layer of one mode (full, prefill, decode, paged)."""
+        attention sub-layer of one mode (full, prefill, decode, paged).
+        ``remat`` recomputes each block in the backward pass instead of
+        keeping its activations."""
         for i in range(self.cfg.n_layers):
             p = _layer(params["blocks"], i)
-            x = x + attend(i, p["attn"], self._norm(p["ln1"], x))
-            x = x + mlp_apply(p["mlp"], self._norm(p["ln2"], x),
-                              kind=self.cfg.mlp_kind)
+            if remat:
+                x = checkpoint(self._block, attend, i, p, x,
+                               use_reentrant=False)
+            else:
+                x = self._block(attend, i, p, x)
         return x
 
     def _head(self, params, x):
@@ -173,8 +189,9 @@ class DecoderLM:
             return x @ params["embed"]["table"].T
         return dense(params["head"]["out"], x)
 
-    def apply(self, params, tokens, *, positions=None) -> torch.Tensor:
-        """Full-sequence forward -> logits ``[b, s, vocab]``."""
+    def _backbone(self, params, tokens, positions=None, *,
+                  remat: bool = False) -> torch.Tensor:
+        """Embed + block stack -> final hidden states ``[b, s, d]``."""
         cfg = self.cfg
         x = embed(params["embed"], tokens)
         b, s, _ = x.shape
@@ -188,7 +205,28 @@ class DecoderLM:
                                 window=cfg.window)
             return out.reshape(b, s, -1) @ p["wo"]["w"]
 
-        return self._head(params, self._blocks(params, x, attend))
+        return self._blocks(params, x, attend, remat=remat)
+
+    def apply(self, params, tokens, *, positions=None) -> torch.Tensor:
+        """Full-sequence forward -> logits ``[b, s, vocab]``."""
+        return self._head(params, self._backbone(params, tokens, positions))
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, batch, *,
+             segment_cuts: tuple[int, ...] = ()) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch = {tokens, labels}``
+        (``[b, s]`` each), float32.
+
+        ``segment_cuts`` is accepted for the reference's signature: there
+        it splits the layer scan so XLA can overlap a phase's sync with
+        the remaining backward; in eager PyTorch it has no numeric effect
+        (the overlap it serves is ROADMAP.md queue A item 6)."""
+        del segment_cuts
+        x = self._backbone(params, batch["tokens"],
+                           remat=self.cfg.remat and torch.is_grad_enabled())
+        logits = self._head(params, x)
+        labels = batch["labels"]
+        return softmax_xent(logits[:, :-1], labels[:, 1:])
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_seq: int, *, device) -> Tree:
@@ -296,8 +334,18 @@ class DecoderLM:
         x = self._blocks(params, x, attend)
         return self._head(params, x), pages
 
+    # ------------------------------------------------------------- structure
+    def unit_layout(self) -> UnitLayout:
+        """Schedulable units in network order: ``embed``, one per layer
+        of ``blocks``, ``head``."""
+        entries = [UnitEntry("embed", "embed", None)]
+        entries += [UnitEntry(f"layer_{i}", "blocks", i)
+                    for i in range(self.cfg.n_layers)]
+        entries.append(UnitEntry("head", "head", None))
+        return UnitLayout(tuple(entries))
+
     # ---------------------------------------------------- analytic accounting
-    def param_count(self) -> int:
+    def _block_param_count(self) -> int:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
         attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
@@ -309,7 +357,43 @@ class DecoderLM:
         norms = 2 * d * (2 if cfg.norm_kind == "layernorm" else 1)
         mlp = d * (cfg.dense_d_ff or cfg.d_ff) \
             * (3 if cfg.mlp_kind == "swiglu" else 2)
-        n = cfg.vocab * d + cfg.n_layers * (attn + mlp + norms) + d
+        return attn + mlp + norms
+
+    def param_count(self) -> int:
+        cfg = self.cfg
+        n = cfg.vocab * cfg.d_model + cfg.n_layers * self._block_param_count() \
+            + cfg.d_model
         if not cfg.tie_embeddings:
-            n += d * cfg.vocab
+            n += cfg.d_model * cfg.vocab
         return n
+
+    def _block_fwd_flops(self, tokens: int, kv_len: int) -> float:
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.hd
+        proj = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+            + cfg.n_heads * hd * d
+        att_len = kv_len if cfg.window is None else min(kv_len, cfg.window)
+        attn = 2.0 * tokens * proj \
+            + 2.0 * tokens * att_len * cfg.n_heads * hd * 2
+        d_ff = cfg.dense_d_ff or cfg.d_ff
+        mlp = 2.0 * tokens * d * d_ff * (3 if cfg.mlp_kind == "swiglu"
+                                         else 2)
+        return attn + mlp
+
+    def layer_costs(self, batch: int, seq: int, *,
+                    mode: str = "train") -> list[tuple[str, float, float]]:
+        """(unit_name, n_params, fwd_flops) per unit — profiler input.
+
+        ``mode="decode"`` charges one-token steps against a ``seq``-deep KV
+        cache (serving shapes)."""
+        cfg = self.cfg
+        tokens = batch * seq if mode == "train" else batch
+        out = [("embed", float(cfg.vocab * cfg.d_model),
+                2.0 * tokens * cfg.d_model)]
+        per_p = float(self._block_param_count())
+        per_f = self._block_fwd_flops(tokens, seq)
+        out += [(f"layer_{i}", per_p, per_f) for i in range(cfg.n_layers)]
+        head_p = float(cfg.d_model + (0 if cfg.tie_embeddings
+                                      else cfg.d_model * cfg.vocab))
+        out.append(("head", head_p, 2.0 * tokens * cfg.d_model * cfg.vocab))
+        return out

@@ -241,6 +241,14 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.paged_attention\n"
+        "import repro_torch.kernels.fused_adam_sync\n"
+        "import repro_torch.kernels.int8_quant\n"
+        "import repro_torch.api, repro_torch.launch.train\n"
+        "import repro_torch.core, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.parallel, repro_torch.runtime\n"
+        "from repro_torch.api import JobConfig, Session\n"
+        "Session(JobConfig(workers=2, seq=8, batch_per_worker=1),"
+        " device='cpu').fit(2)\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
         "m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
