@@ -50,6 +50,23 @@ code is non-zero):
 9. ``train_profile`` — one more period of the int8 session under
    ``torch.profiler``: device ms per step by kernel class and the
    device's busy share of the wall time.
+10. ``kernel`` (SSD) — the SSD chunk kernel against its plain version at
+   the Mamba-2 serve phase's own geometry (B 2, NC 4, 48 heads, cs 128,
+   p 64, n 128; x float32, b and c bfloat16), at B 1 x NC 8 all float32
+   and at the smoke widths (cs 8, p 8, n 16), held to ``1e-4 *
+   max|plain|`` for y and for the states.
+11. ``mamba2_reference`` — mamba2 SMOKE (float32) served by the
+   contiguous engine on the card (through the SSD kernel) must emit
+   exactly the greedy tokens of the plain naive loop on the CPU, same
+   weights, and its prefill and decode logits must agree within
+   ``MAMBA_REF_TOL``.
+12. ``mamba2_serve`` — mamba2-780m at full width and depth (48 layers,
+   d_model 1536, random bfloat16 weights from a seeded generator) serves
+   12 greedy requests (prompts of 100-1024 tokens, 32 new tokens each,
+   one with an EOS) through ``ServeEngine`` on the contiguous backend.
+   The SSD kernel's counter is set to 0 just before and read just
+   after: 48 launches per prefill call.
+13. ``mamba2_profile`` — its decode ticks alone under ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -74,7 +91,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api import JobConfig, Session  # noqa: E402
-from repro_torch.configs import granite_3_2b  # noqa: E402
+from repro_torch.configs import granite_3_2b, mamba2_780m  # noqa: E402
 from repro_torch.core.partial_sync import contiguous_ranges  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -82,7 +99,9 @@ from repro_torch.kernels.fused_adam_sync import fused_adamw  # noqa: E402
 from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
                                             quantize_rows)
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk  # noqa: E402
 from repro_torch.models.layers import count_params  # noqa: E402
+from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
                                ServeEngine)
@@ -153,9 +172,12 @@ def median_ms(fn, *, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
+def bound(bytes_moved: float, *work: tuple[float, torch.dtype]
+          ) -> tuple[float, str]:
+    """The larger of the byte time and the operation time; ``work`` is
+    (flops, operand dtype) pairs, each at its dtype's peak, times added."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(f / PEAK_FLOPS[dt] for f, dt in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -262,7 +284,7 @@ def check_kernel(name: str) -> dict:
             if excess > 0:
                 raise RuntimeError(f"{name} {shape} {dtype}: max abs err "
                                    f"{err} beyond atol {atol} + rtol {rtol}")
-            b_ms, b_by = bound(nbytes, flops, dtype)
+            b_ms, b_by = bound(nbytes, (flops, dtype))
             row = {
                 "shape": shape, "dtype": str(dtype).removeprefix("torch."),
                 "max_abs_err": err, "atol": atol, "rtol": rtol,
@@ -315,37 +337,43 @@ def _to(tree, device):
     return tree.to(device)
 
 
+SERVE_LENS = (64, 64, 128, 128, 192, 256, 256, 320, 384, 384, 448, 512)
+
+
 def serve_requests(vocab: int, eos_req: int | None = None,
-                   eos_id: int | None = None) -> list[Request]:
-    rng = np.random.default_rng(3)
-    lens = (64, 64, 128, 128, 192, 256, 256, 320, 384, 384, 448, 512)
+                   eos_id: int | None = None, *, lens=SERVE_LENS,
+                   seed: int = 3) -> list[Request]:
+    rng = np.random.default_rng(seed)
     return [Request(tokens=rng.integers(0, vocab, n).tolist(),
                     max_new_tokens=32, request_id=i,
                     eos_id=eos_id if i == eos_req else None)
             for i, n in enumerate(lens)]
 
 
-def serve(model, params, engine_cfg) -> dict:
+def drive_serve(model, params, engine_cfg, make_requests, kernels) -> tuple:
+    """A warm-up run, then the timed run of ``make_requests(vocab,
+    eos_req, eos_id)`` with the ``kernels``' launch counters set to 0
+    just before and read just after; checks every stream.  Returns (the
+    phase's common numbers, the engine, launches by kernel name)."""
     cfg = model.cfg
     # warm-up run (first launches, cuBLAS heuristics) whose streams also
     # pick the EOS: request 3 gets the 6th token it emits greedily
     warm = ServeEngine(model, params, engine_cfg, device="cuda")
-    base = warm.generate(serve_requests(cfg.vocab))
+    base = warm.generate(make_requests(cfg.vocab))
     eos_req, eos_id = 3, base[3].tokens[5]
     del warm
 
     engine = ServeEngine(model, params, engine_cfg, device="cuda")
-    reqs = serve_requests(cfg.vocab, eos_req, eos_id)
+    reqs = make_requests(cfg.vocab, eos_req, eos_id)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    paged_attention.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     comps = engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "paged_attention": paged_attention.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
 
     for c in comps:
         if c.finish_reason not in ("stop", "length"):
@@ -369,10 +397,9 @@ def serve(model, params, engine_cfg) -> dict:
     st = engine.stats
     ticks = st.slot_ticks_total // engine_cfg.slots
     ttft = sorted(st.ttft_s)
-    return {
-        "phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
-        "d_model": cfg.d_model, "params": count_params(params),
-        "dtype": cfg.param_dtype,
+    common = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": count_params(params), "dtype": cfg.param_dtype,
         "requests": st.requests_completed,
         "finish": {c.request_id: c.finish_reason for c in comps},
         "prompt_tokens": st.prompt_tokens,
@@ -389,6 +416,17 @@ def serve(model, params, engine_cfg) -> dict:
         "ms_per_decode_tick": st.decode_time_s * 1e3 / ticks,
         "prefill_batches": st.prefill_batches,
         "admit_ticks": st.admit_ticks,
+    }
+    return common, engine, launches
+
+
+def serve(model, params, engine_cfg) -> dict:
+    common, engine, launches = drive_serve(
+        model, params, engine_cfg, serve_requests,
+        {"flash_attention": flash_attention,
+         "paged_attention": paged_attention})
+    return {
+        "phase": "serve", **common,
         "peak_pages_in_use": engine.pool.peak_pages_in_use,
         "peak_kv_bytes": engine.pool.peak_kv_bytes(),
         "pool_bytes": engine.pool.kv_bytes(),
@@ -409,7 +447,8 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_decode(model, params, engine_cfg) -> dict:
+def profile_decode(model, params, engine_cfg, requests=None,
+                   phase="profile") -> dict:
     """Decode ticks alone under ``torch.profiler``: 8 requests fill the 8
     slots, the first step (admission and one block) runs unprofiled, and
     every later step is pure decode.  Device time is summed over the
@@ -417,7 +456,8 @@ def profile_decode(model, params, engine_cfg) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine = ServeEngine(model, params, engine_cfg, device="cuda")
-    for r in serve_requests(model.cfg.vocab)[:engine_cfg.slots]:
+    requests = requests or serve_requests(model.cfg.vocab)
+    for r in requests[:engine_cfg.slots]:
         engine.submit(r)
     engine.step()
     ticks0 = engine.stats.slot_ticks_total
@@ -437,7 +477,7 @@ def profile_decode(model, params, engine_cfg) -> dict:
         ms[cls] = ms.get(cls, 0.0) + ev.time_range.elapsed_us() / 1e3
         count[cls] = count.get(cls, 0) + 1
     return {
-        "phase": "profile", "window": "decode only", "ticks": ticks,
+        "phase": phase, "window": "decode only", "ticks": ticks,
         "device_ms_per_tick": sum(ms.values()) / ticks,
         "device_ms_per_tick_by_class": {k: v / ticks for k, v in ms.items()},
         "launches_per_tick_by_class": {k: v / ticks
@@ -576,7 +616,7 @@ def check_adam() -> dict:
         del plain
         _free()
         library, reason = fused_adam_library(a, args[4])
-        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        b_ms, b_by = bound(nbytes, (flops, torch.float32))
         row = {"shape": f"{list(shape)} (blocks.mlp.gate.w), "
                         f"{math.prod(shape)} elements",
                "dtype": str(dtype).removeprefix("torch."),
@@ -638,7 +678,7 @@ def check_int8() -> list[dict]:
                  lambda: dequantize_rows(q, s, impl="cuda"),
                  lambda: dequantize_rows(q, s, impl="ref"), torch_mul,
                  "torch.mul(q, scale)", n * 5 + r * 4, n)):
-            b_ms, b_by = bound(nbytes, flops, torch.float32)
+            b_ms, b_by = bound(nbytes, (flops, torch.float32))
             row = {"shape": shape, "dtype": "float32 -> int8" if
                    name == "quantize_rows" else "int8 -> float32",
                    "max_abs_err": 0.0, "ms": median_ms(fn),
@@ -868,6 +908,183 @@ def train_profile(sess, unprofiled_ms: float) -> dict:
     }
 
 
+# ---------------------------------------------------------------- Mamba-2
+
+# |kernel - plain| <= SSD_TOL * max|plain|, for y and for the states.  Both
+# compute in float32, but torch.cumsum on the card sums in another order
+# than the kernel's sequential scan, and exp(cum_i - cum_j) turns an ulp
+# of cum (|cum| reaches ~1400 with the model's decays) into a relative
+# error of a score: ~2.5e-5 of max|y| between two orders on the CPU.
+SSD_TOL = 1e-4
+# mamba2_reference, card against CPU on float32 smoke logits: float32
+# sums in another order (cuBLAS without TF32 against the CPU's).
+MAMBA_REF_TOL = (1e-4, 1e-4)                       # atol, rtol
+# The serve phase: 8 slots, lanes of 1152, prompts of 100-1024 tokens
+# (most not a multiple of the chunk, so dt = 0 padding runs; two pairs of
+# equal lengths share an admission group); 480 + 480 is the B 2 x NC 4
+# prefill the kernel's first case times.
+MAMBA_LENS = (100, 100, 250, 333, 480, 480, 512, 640, 777, 900, 1000, 1024)
+MAMBA_ENGINE = EngineConfig(max_batch=8, max_seq=1152, decode_block=8)
+
+
+def ssd_case(*, B, NC, H, cs, p, n, bc_dtype, seed=5):
+    """Chunk inputs with the model's decays: da = -softplus(z) * A, A =
+    1..16 over the heads (a_log's init, dt_bias 0)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    a = torch.linspace(1.0, 16.0, H, device="cuda")
+    x = rand(B, NC, H, cs, p)
+    b, c = rand(B, NC, H, cs, n).to(bc_dtype), rand(B, NC, H, cs, n).to(
+        bc_dtype)
+    da = (-torch.nn.functional.softplus(rand(B, NC, H, cs))
+          * a[:, None]).contiguous()
+    cells = B * NC * H
+    tri = cs * (cs + 1) // 2
+    nbytes = sum(t.numel() * t.element_size() for t in (x, b, c, da)) \
+        + x.numel() * 4 + cells * p * n * 4          # y, states out
+    # over the lower triangle: c.b on b/c's type (exact on bfloat16
+    # tensor cores, whose products accumulate in float32); in float32 the
+    # exp and the mask product, the y product, the decay scaling of B,
+    # its exp and the state product
+    work = [(cells * tri * 2 * n, bc_dtype),
+            (cells * (tri * (2 + 2 * p) + cs * (n + 1) + 2 * cs * p * n),
+             torch.float32)]
+    shape = (f"B {B}, NC {NC}, H {H}, cs {cs}, p {p}, n {n}, x float32, "
+             f"b/c {str(bc_dtype).removeprefix('torch.')}")
+    return (x, b, c, da), nbytes, work, shape
+
+
+def check_ssd() -> dict:
+    """The SSD chunk kernel against its plain version: the serve phase's
+    prefill group first, then a deeper all-float32 case and the smoke
+    widths."""
+    sc = mamba2_780m.SMOKE
+    cases = [dict(B=2, NC=4, H=48, cs=128, p=64, n=128,
+                  bc_dtype=torch.bfloat16),
+             dict(B=1, NC=8, H=48, cs=128, p=64, n=128,
+                  bc_dtype=torch.float32),
+             dict(B=2, NC=3, H=sc.n_heads, cs=sc.chunk, p=sc.head_dim,
+                  n=sc.d_state, bc_dtype=torch.float32)]
+    checks = []
+    for case in cases:
+        args, nbytes, work, shape = ssd_case(**case)
+        y, s = ssd_chunk(*args, impl="cuda")
+        yr, sr = ssd_chunk(*args, impl="ref")
+        torch.cuda.synchronize()
+        errs, rel = [], []
+        for got, want in ((y, yr), (s, sr)):
+            if got.dtype != want.dtype or got.shape != want.shape \
+                    or not torch.isfinite(got).all():
+                raise RuntimeError(f"ssd_chunk {shape}: output {got.dtype} "
+                                   f"{tuple(got.shape)} or non-finite")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if err > SSD_TOL * scale:
+                raise RuntimeError(f"ssd_chunk {shape}: max abs err {err} "
+                                   f"beyond {SSD_TOL} x max|plain| {scale}")
+            errs.append(err)
+            rel.append(err / scale)
+        b_ms, b_by = bound(nbytes, *work)
+        row = {"shape": shape, "dtype": "float32 out",
+               "max_abs_err": max(errs), "max_abs_err_y_states": errs,
+               "err_over_max_plain_y_states": rel, "tol": SSD_TOL,
+               "ms": median_ms(lambda a=args: ssd_chunk(*a, impl="cuda")),
+               "plain_ms": median_ms(lambda a=args: ssd_chunk(*a,
+                                                              impl="ref")),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "library": "none: no single PyTorch call computes y and the "
+                          "chunk states",
+               "bytes": nbytes,
+               "flops_by_type": {str(dt).removeprefix("torch."): f
+                                 for f, dt in work}}
+        emit({"phase": "kernel", "name": "ssd_chunk_fwd", **row})
+        checks.append(row)
+        del args, y, s, yr, sr
+        _free()
+    return {"name": "ssd_chunk_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:60",
+            "checks": checks}
+
+
+def _max_excess(got, want, tol) -> tuple[float, float]:
+    d = (got.float().cpu() - want.float()).abs()
+    return d.max().item(), (d - tol[0] - tol[1] * want.abs()).max().item()
+
+
+def mamba2_reference() -> dict:
+    """mamba2 SMOKE (float32) on the card through the SSD kernel: logits
+    of a prefill and of decode steps against the CPU's, then the
+    contiguous engine's greedy streams against the CPU naive loop's."""
+    model = Mamba2LM(mamba2_780m.SMOKE)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    cpu_params = _to(params, "cpu")
+    rng = np.random.default_rng(4)
+    vocab = model.cfg.vocab
+    ssd_chunk.launches = 0
+    tok = rng.integers(0, vocab, (3, 21)).astype(np.int32)
+    runs = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        with torch.no_grad():
+            cache = model.init_cache(3, 32, device=dev)
+            lg, cache = model.prefill(p, torch.from_numpy(tok).to(dev), cache)
+            out = [lg]
+            for i in range(4):
+                step = torch.from_numpy(tok[:, i:i + 1]).to(dev)
+                lg, cache = model.decode_step(p, cache, step, None)
+                out.append(lg)
+        runs[dev] = torch.cat(out, 1)
+    err, excess = _max_excess(runs["cuda"], runs["cpu"], MAMBA_REF_TOL)
+    if excess > 0 or not torch.isfinite(runs["cuda"]).all():
+        raise RuntimeError(f"mamba2_reference: logits differ by {err}")
+    prompts = [rng.integers(0, vocab, n).tolist()
+               for n in (5, 9, 9, 14, 3, 20)]
+    budgets = (6, 4, 8, 3, 7, 5)
+    eng = ServeEngine(model, params, EngineConfig(
+        max_batch=4, max_seq=32, decode_block=4), device="cuda")
+    comps = eng.generate([Request(tokens=p, max_new_tokens=g)
+                          for p, g in zip(prompts, budgets, strict=True)])
+    if ssd_chunk.launches == 0:
+        raise RuntimeError("mamba2_reference did not go through the SSD "
+                           "kernel")
+    loop = NaiveLoop(model, cpu_params, device="cpu")
+    for c, p, g in zip(comps, prompts, budgets, strict=True):
+        want = loop.generate([p], g)[0].tolist()
+        if c.tokens != want:
+            raise RuntimeError(f"card {c.tokens} != cpu {want}")
+    return {"phase": "mamba2_reference", "requests": len(comps),
+            "tokens": sum(len(c.tokens) for c in comps), "match": True,
+            "max_abs_logit_err": err, "logit_tol": MAMBA_REF_TOL,
+            "ssd_launches": ssd_chunk.launches}
+
+
+def mamba_requests(vocab: int, eos_req: int | None = None,
+                   eos_id: int | None = None) -> list[Request]:
+    return serve_requests(vocab, eos_req, eos_id, lens=MAMBA_LENS, seed=6)
+
+
+def mamba2_serve(model, params) -> dict:
+    cfg = model.cfg
+    common, engine, launches = drive_serve(
+        model, params, MAMBA_ENGINE, mamba_requests,
+        {"ssd_chunk_fwd": ssd_chunk})
+    if launches["ssd_chunk_fwd"] != cfg.n_layers * common["prefill_batches"]:
+        raise RuntimeError(f"ssd_chunk_fwd launched {launches} for "
+                           f"{common['prefill_batches']} prefill calls of "
+                           f"{cfg.n_layers} layers")
+    return {
+        "phase": "mamba2_serve", **common, "d_inner": cfg.d_inner,
+        "heads": cfg.n_heads, "d_state": cfg.d_state,
+        "backend": "contiguous", "prompt_lens": list(MAMBA_LENS),
+        "state_bytes": engine.pool.kv_bytes(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+    }
+
+
 def kernel_rows(kernels: list[dict], launches: dict) -> list[dict]:
     """The kernels line's rows: each kernel's first check (its path's own
     geometry and working dtype) and its launches on the path's run."""
@@ -936,6 +1153,20 @@ def main() -> int:
         "fused_adamw": plain["launches"]["fused_adamw"],
         "quantize_rows": int8["launches"]["quantize_rows"],
         "dequantize_rows": int8["launches"]["dequantize_rows"]})
+
+    ssd = check_ssd()
+    emit(mamba2_reference())
+    model = Mamba2LM(mamba2_780m.CONFIG)        # full width and depth
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    if count_params(params) != model.param_count():
+        raise RuntimeError("parameter count disagrees with the config")
+    result = mamba2_serve(model, params)
+    emit(result)
+    emit(profile_decode(model, params, MAMBA_ENGINE,
+                        mamba_requests(model.cfg.vocab), "mamba2_profile"))
+    del model, params
+    _free()
+    rows += kernel_rows([ssd], result["launches"])
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,15 +1,17 @@
 """Architecture registry of the port: ``--arch <id>`` -> :class:`ArchSpec`.
 
-Only the serving slice's model is ported so far; the other architectures
-of ``repro.configs`` follow the model families in ROADMAP.md queue A.
+Ported: granite-3-2b (dense; served and trained) and mamba2-780m
+(Mamba-2; served).  The other architectures of ``repro.configs`` follow
+the model families in ROADMAP.md queue A.
 """
 
 from __future__ import annotations
 
-from . import granite_3_2b
+from . import granite_3_2b, mamba2_780m
 from .common import ArchSpec
 
-ARCHS: dict[str, ArchSpec] = {granite_3_2b.ARCH.arch_id: granite_3_2b.ARCH}
+ARCHS: dict[str, ArchSpec] = {a.arch_id: a for a in (granite_3_2b.ARCH,
+                                                     mamba2_780m.ARCH)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -7,6 +7,8 @@ fused_adam_sync  one streaming AdamW pass per leaf (training: the
                  ``adam`` / ``adamw`` optimizer update)
 int8_quant       per-row int8 quantize / dequantize (training: the
                  ``dreamddp-int8`` sync's wire format)
+ssd_scan         Mamba-2 SSD chunk-local core (serving prefill of the
+                 Mamba-2 family: the intra-chunk outputs and chunk states)
 
 Each kernel package holds ``ref.py`` (the plain PyTorch version, the CPU
 path and the oracle) and ``ops.py`` (the wrapper that launches the CUDA

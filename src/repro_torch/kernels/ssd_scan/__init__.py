@@ -1,0 +1,6 @@
+"""Mamba-2 SSD chunk-local core (CUDA kernel + plain version)."""
+
+from .ops import ssd_chunk
+from .ref import ssd_chunk_ref
+
+__all__ = ["ssd_chunk", "ssd_chunk_ref"]

@@ -36,8 +36,12 @@ TRASH_PAGE = 0  # reserved page: absorbs masked/inactive writes, never read
 
 
 def _leaves(tree: Tree) -> list[torch.Tensor]:
+    """Leaves of a cache: nested dicts (attention KV) or tuples (the
+    Mamba-2 conv and SSM states)."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
@@ -45,6 +49,9 @@ def _zip_leaves(a: Tree, b: Tree):
     if isinstance(a, dict):
         for k in a:
             yield from _zip_leaves(a[k], b[k])
+    elif isinstance(a, tuple):
+        for x, y in zip(a, b, strict=True):
+            yield from _zip_leaves(x, y)
     else:
         yield a, b
 
@@ -146,7 +153,8 @@ class PagedCachePool(CachePool):
         if not getattr(model, "supports_paged_kv", False):
             raise ValueError(
                 f"{type(model).__name__} does not support a paged KV "
-                "cache — use kv_backend='contiguous'")
+                "cache (recurrent state lanes are fixed-size per slot) — "
+                "use kv_backend='contiguous'")
         if max_seq % page_size:
             raise ValueError(
                 f"max_seq={max_seq} must be a multiple of "

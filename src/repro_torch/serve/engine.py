@@ -1,6 +1,8 @@
 """ServeEngine — continuous-batching inference over a slot-pooled cache.
 
-Counterpart of ``repro.serve.engine`` for the dense decoder.  Requests
+Counterpart of ``repro.serve.engine`` for the dense decoder (both cache
+backends) and Mamba-2 (the contiguous backend: its lanes are a fixed
+conv window and SSM state, with nothing to page).  Requests
 are data (:class:`~repro_torch.serve.types.Request`), admission is the
 :class:`~repro_torch.serve.scheduler.Scheduler`'s, and decoding runs
 ``decode_block`` slot-wide ticks between scheduler interventions, with
@@ -100,7 +102,10 @@ class ServeEngine:
         if self.config.prefill_chunk and \
                 not getattr(model, "kv_position_indexed", False):
             raise ValueError(
-                "prefill_chunk requires a position-indexed KV cache")
+                "prefill_chunk requires a position-indexed KV cache; "
+                f"{type(model).__name__} carries recurrent state that "
+                "right-padded prefill would corrupt — use exact prefill "
+                "(prefill_chunk=None)")
         self._paged = self.config.kv_backend == "paged"
         if self._paged:
             self.pool: CachePool = PagedCachePool(

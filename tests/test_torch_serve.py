@@ -2,10 +2,11 @@
 
 Greedy requests with mixed prompt lengths, one early EOS and more
 requests than slots go through both engines on granite-3-2b ``SMOKE``
-(float32, JAX-made params carried across).  Discrete outputs must be
-identical: token streams, finish reasons, the per-step completion order,
-peak pages in use (paged backend, incl. deferral under a short pool) and
-every ``EngineStats`` counter.  Times are not compared.
+and on mamba2 ``SMOKE`` (float32, JAX-made params carried across; Mamba-2
+on the contiguous backend, the only one it has).  Discrete outputs must
+be identical: token streams, finish reasons, the per-step completion
+order, peak pages in use (paged backend, incl. deferral under a short
+pool) and every ``EngineStats`` counter.  Times are not compared.
 """
 
 import os
@@ -18,8 +19,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import granite_3_2b  # noqa: E402
+from repro_torch.configs import granite_3_2b, mamba2_780m  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
                                SamplingParams, ServeEngine)
@@ -39,10 +41,9 @@ _COUNTERS = ("requests_completed", "prompt_tokens", "generated_tokens",
              "slot_ticks_active", "slot_ticks_total")
 
 
-def _prompts():
+def _prompts(vocab=granite_3_2b.SMOKE.vocab):
     rng = np.random.default_rng(0)
-    return [rng.integers(0, granite_3_2b.SMOKE.vocab, n).tolist()
-            for n in _PROMPT_LENS]
+    return [rng.integers(0, vocab, n).tolist() for n in _PROMPT_LENS]
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +74,8 @@ def _cfg(backend, **kw):
 def _drive(engine, request_cls, eos_id):
     """Submit the workload and step to idle; returns the completions by
     id, the ids finished at each step, and the engine."""
-    for i, (p, g) in enumerate(zip(_prompts(), _BUDGETS, strict=True)):
+    prompts = _prompts(engine.model.cfg.vocab)
+    for i, (p, g) in enumerate(zip(prompts, _BUDGETS, strict=True)):
         engine.submit(request_cls(tokens=p, max_new_tokens=g, request_id=i,
                                   eos_id=eos_id if i == _EOS_REQ else None))
     order, comps = [], {}
@@ -114,13 +116,13 @@ def _port_run(port, eos_id, **cfg):
     return _summary(*_drive(eng, Request, eos_id))
 
 
-def _jax_run(eos_id, **cfg):
+def _jax_run(eos_id, arch="granite-3-2b", **cfg):
     jax = pytest.importorskip("jax")
-    from repro.configs import granite_3_2b as jg
+    from repro.configs import get_arch
     from repro.serve import EngineConfig as JConfig
     from repro.serve import Request as JRequest
     from repro.serve import ServeEngine as JEngine
-    model = jg.ARCH.make_smoke()
+    model = get_arch(arch).make_smoke()
     params = model.init(jax.random.PRNGKey(0))
     return _summary(*_drive(JEngine(model, params, JConfig(**cfg)),
                             JRequest, eos_id))
@@ -151,6 +153,76 @@ def test_engine_matches_jax_engine(port, eos_id, backend, batched, chunk,
     if kv_pages:       # fewer pages than the workload's worst case
         assert ours["peak_pages"] <= kv_pages - 1
         assert ours["stats"]["admit_ticks"] > 2
+
+
+# ------------------------------------------------------------- Mamba-2
+
+@pytest.fixture(scope="module")
+def mamba():
+    """The port's mamba2 smoke model on JAX-made params and the token
+    request ``_EOS_REQ`` emits third when run greedily on the port."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import mamba2_780m as jm
+    from repro_torch.convert import params_from_numpy
+    jp = jax.device_get(jm.ARCH.make_smoke().init(jax.random.PRNGKey(0)))
+    model = Mamba2LM(mamba2_780m.SMOKE)
+    params = params_from_numpy(jp, "cpu")
+    eng = ServeEngine(model, params, EngineConfig(**_cfg("contiguous")),
+                      device="cpu")
+    comps, _, _ = _drive(eng, Request, None)
+    return model, params, comps[_EOS_REQ].tokens[2]
+
+
+@pytest.mark.parametrize("batched", [True, False],
+                         ids=["contiguous-batched", "contiguous-serial"])
+def test_mamba2_engine_matches_jax_engine(mamba, batched):
+    model, params, eos = mamba
+    cfg = _cfg("contiguous", batched_admission=batched)
+    ours = _port_run((model, params), eos, **cfg)
+    theirs = _jax_run(eos, arch="mamba2-780m", **cfg)
+    assert ours == theirs
+    assert ours["finish"][_EOS_REQ] == "stop"
+    assert ours["tokens"][_EOS_REQ][-1] == eos
+    assert {len(t) for t in ours["tokens"].values()} != {1}
+
+
+def test_mamba2_engine_matches_naive_loop_and_counts_state_bytes(mamba):
+    model, params, _ = mamba
+    loop = NaiveLoop(model, params, device="cpu")
+    eng = ServeEngine(model, params, EngineConfig(**_cfg("contiguous")),
+                      device="cpu")
+    comps, _, _ = _drive(eng, Request, None)
+    for i, (p, g) in enumerate(zip(_prompts(model.cfg.vocab), _BUDGETS,
+                                   strict=True)):
+        assert comps[i].tokens == loop.generate([p], g)[0].tolist()
+    cfg = model.cfg
+    slots = eng.config.slots
+    assert eng.pool.kv_bytes() == cfg.n_layers * slots * 4 * (
+        (cfg.conv_width - 1) * cfg.conv_dim
+        + cfg.n_heads * cfg.head_dim * cfg.d_state)
+
+
+def test_mamba2_engine_refuses_chunked_prefill_and_paged_kv(mamba):
+    model, params, _ = mamba
+    with pytest.raises(ValueError, match="recurrent state"):
+        ServeEngine(model, params, EngineConfig(
+            **_cfg("contiguous", prefill_chunk=8)), device="cpu")
+    with pytest.raises(ValueError, match="paged KV"):
+        ServeEngine(model, params, EngineConfig(**_cfg("paged")),
+                    device="cpu")
+
+
+def test_serve_cli_runs_mamba2_and_refuses_paged(capsys):
+    from repro_torch.launch.serve import main
+    assert main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                 "--batch", "2", "--prompt-len", "11", "--gen", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=mamba2-780m device=cpu requests=2" in out
+    assert "generated=6" in out
+    with pytest.raises(ValueError, match="paged KV"):
+        main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+              "--kv-backend", "paged", "--batch", "1", "--prompt-len", "4",
+              "--gen", "2"])
 
 
 # --------------------------------------------------------- inside the port
@@ -243,6 +315,7 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch.kernels.paged_attention\n"
         "import repro_torch.kernels.fused_adam_sync\n"
         "import repro_torch.kernels.int8_quant\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.mamba2\n"
         "import repro_torch.api, repro_torch.launch.train\n"
         "import repro_torch.core, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.parallel, repro_torch.runtime\n"
