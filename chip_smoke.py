@@ -12,11 +12,13 @@ code is non-zero):
    with ``nvcc`` (one process per source, in parallel).
 3. ``kernel``  — each kernel against its plain PyTorch version on the
    card at its path's full-width shapes, with median CUDA-event times of
-   the kernel, the plain version and, where one exists, a library call,
-   and the least time the card could take (bound).  Attention kernels
-   (the serve phase's own geometry first, then deeper, wider and
-   windowed cases), in bfloat16 and float32, held to ``atol + rtol *
-   |plain in float32|``.  Training kernels at the train phase's
+   the kernel, the plain version and, where one exists, a library call
+   (device time alone: a sleep kernel holds the stream while the host
+   enqueues; a ``timing`` line first gives the floor, one trivial
+   kernel's time), and the least time the card could take (bound).
+   Attention kernels (the serve phase's own geometry first, then deeper,
+   wider, windowed and one-slot cases), in bfloat16 and float32, held to
+   ``atol + rtol * |plain in float32|``.  Training kernels at the train phase's
    geometry: fused AdamW on the largest leaf (``blocks.mlp.gate.w``,
    ``[4, 8, 2048, 8192]``) in bfloat16 and float32, held to ``atol +
    rtol * |plain|``; the int8 row kernels on one phase's block slices
@@ -68,8 +70,10 @@ code is non-zero):
    after: 48 launches per prefill call.
 13. ``mamba2_profile`` — its decode ticks alone under ``torch.profiler``.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` line (each kernel's cases, launches on
+its path, and ptxas's registers, shared memory and spills for its
+source), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -78,6 +82,8 @@ import dataclasses
 import gc
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -127,7 +133,8 @@ KERNELS = {
         "replaces": "src/repro/kernels/paged_attention/kernel.py:150",
         "cases": [{"mb": 34, "max_len": 544},
                   {"mb": 64, "max_len": 1024},
-                  {"mb": 34, "max_len": 544, "window": 128}],
+                  {"mb": 34, "max_len": 544, "window": 128},
+                  {"mb": 64, "max_len": 1024, "slots": 1}],
     },
     "flash_attention": {
         "fn": flash_attention,
@@ -153,14 +160,28 @@ def nvidia_smi() -> str:
 
 # ---------------------------------------------------------------- timing
 
-def median_ms(fn, *, reps: int = 30, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times; L2 is flushed before each
-    call (the serving path finds a layer's KV cold)."""
+def median_ms(fn, *, reps: int = 30, warmup: int = 3,
+              hold: bool = True) -> float:
+    """Median of per-call CUDA-event times of the device's work alone; L2
+    is flushed before each call (the serving path finds a layer's KV
+    cold).  A sleep kernel of ~4x the call's host enqueue time (at 2 GHz)
+    holds the stream first, so that the host has queued the flush, the
+    events and the call before the device reaches them: no host gap
+    lands between the events, however small the kernel.  ``hold=False``
+    drops the sleep: a host enqueue slower than the flush then counts
+    (the kernel times of ``PERF.md`` before the attention redesign)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    cycles = int(min(8e9 * (time.perf_counter() - t0) + 2e5, 2e7))
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if hold:
+            torch.cuda._sleep(cycles)
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -183,11 +204,11 @@ def bound(bytes_moved: float, *work: tuple[float, torch.dtype]
 
 # ---------------------------------------------------------------- kernels
 
-def paged_case(dtype, *, mb, max_len, window=None, seed=0):
-    """Decode at granite-3-2b width: 8 slots, 32/8 heads, head_dim 64,
-    16-token pages, ``mb`` blocks per slot, ragged kv_len up to
-    ``max_len`` (one slot at one page, one at ``max_len``)."""
-    slots, n_q, n_kv, hd, ps = 8, 32, 8, 64, 16
+def paged_case(dtype, *, mb, max_len, window=None, slots=8, seed=0):
+    """Decode at granite-3-2b width: ``slots`` slots, 32/8 heads,
+    head_dim 64, 16-token pages, ``mb`` blocks per slot, ragged kv_len up
+    to ``max_len`` (one slot at one page, the last at ``max_len``)."""
+    n_q, n_kv, hd, ps = 32, 8, 64, 16
     rng = np.random.default_rng(seed)
     n_pages = 1 + slots * mb
     kv_len = rng.integers(1, max_len + 1, size=slots)
@@ -1085,9 +1106,44 @@ def mamba2_serve(model, params) -> dict:
     }
 
 
+def ptxas(source: str) -> list[dict]:
+    """Registers, static shared memory and spills of each kernel compiled
+    from ``csrc/<source>.cu``, from ``nvcc -Xptxas -v`` in this run's
+    build (empty when the library was already built); kernel names
+    demangled by the toolchain's ``c++filt``."""
+    found, fn = [], None
+    for line in _build.build_logs.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = {"kernel": m.group(1)}
+            found.append(fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            fn["static_smem"] = int(smem.group(1)) if smem else 0
+    cxxfilt = shutil.which("c++filt")
+    if found and cxxfilt:
+        names = subprocess.run(
+            [cxxfilt], input="\n".join(f["kernel"] for f in found),
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.splitlines()
+        for f, name in zip(found, names):
+            # "void (anonymous namespace)::k<64, 2>(args)" -> "k<64, 2>"
+            name = name.replace("(anonymous namespace)::", "")
+            f["kernel"] = name.split("(")[0].removeprefix("void ")
+    return found
+
+
 def kernel_rows(kernels: list[dict], launches: dict) -> list[dict]:
     """The kernels line's rows: each kernel's first check (its path's own
-    geometry and working dtype) and its launches on the path's run."""
+    geometry and working dtype), its launches on the path's run, and
+    ptxas's registers, shared memory and spills for its source."""
     rows = []
     for k in kernels:
         main_row = k["checks"][0]
@@ -1100,6 +1156,7 @@ def kernel_rows(kernels: list[dict], launches: dict) -> list[dict]:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "shape": main_row["shape"], "dtype": main_row["dtype"],
+            "ptxas": ptxas(Path(k["source"]).stem),
             "checks": k["checks"],
         })
     return rows
@@ -1117,11 +1174,12 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _build.build()
     emit({"phase": "build", "seconds": seconds,
-          "wall_s": time.perf_counter() - t0,
-          "ptxas": {k: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for k, log in _build.build_logs.items()}})
+          "wall_s": time.perf_counter() - t0})
 
+    tiny = torch.zeros(16, device="cuda")
+    emit({"phase": "timing", "floor_ms": median_ms(lambda: tiny.add_(1)),
+          "what": "median_ms of one one-block elementwise kernel: the "
+                  "launch and event overhead inside every kernel time"})
     kernels = [check_kernel(k) for k in KERNELS]
     emit(reference_check())
     model = DecoderLM(granite_3_2b.CONFIG)      # full width and depth

@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
+
+_SMS: dict[int, int] = {}       # device index -> multiprocessor count
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -21,3 +23,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     raise RuntimeError(
         "no CUDA device is visible to torch; repro_torch runs on the GPU "
         "by default — pass device='cpu' to run on the CPU")
+
+
+def sm_count(device: torch.device) -> int:
+    """The multiprocessor count of a CUDA device, read once per device."""
+    idx = device.index if device.index is not None else 0
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _SMS[idx] = sms
+    return sms

@@ -6,6 +6,10 @@ plain version on the CPU.
 version explicitly; ``impl="cuda"`` insists on the kernel and raises for
 anything it does not take.  There is no fallback from the kernel to the
 plain version.  ``flash_attention.launches`` counts kernel launches.
+
+bfloat16 runs the tensor-core kernel (mma.sync, the g query heads of a
+KV head packed into one block's rows) at every width in ``HEAD_DIMS``;
+float32 runs the CUDA-core kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import ctypes
 
 import torch
 
+from ...device import sm_count
 from .. import _build
 from .ref import attention_ref
 
@@ -29,7 +34,7 @@ def _fn(dtype: torch.dtype):
     if fn is None:
         fn = getattr(_build.library("flash_attention"),
                      f"flash_attention_fwd_{_SUFFIX[dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
@@ -63,6 +68,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -88,9 +95,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = (hd ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b, sq, sk, n_q, n_kv, hd, int(causal),
-                       -1 if window is None else int(window), scale, stream)
+    with torch.cuda.device(q.device):       # the attribute and the launch
+        err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), b, sq, sk, n_q, n_kv, hd,
+                           int(causal), -1 if window is None else int(window),
+                           sm_count(q.device), scale, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

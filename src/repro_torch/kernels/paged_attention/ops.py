@@ -7,6 +7,14 @@ plain version explicitly; ``impl="cuda"`` insists on the kernel and
 raises for anything it does not take.  There is no fallback from the
 kernel to the plain version.  ``paged_attention.launches`` counts kernel
 launches.
+
+The kernel splits each slot's pages over ``splits`` blocks of ``pps``
+pages and merges the partials inside the same launch.  The split is
+chosen on the host from the shapes and the SM count alone
+(:func:`split_pages`); the wrapper never reads ``kv_len``, so a decode
+step makes no host sync here.  The partials' scratch and the arrival
+counters (which every launch leaves at zero) are kept per device and
+stream.
 """
 
 from __future__ import annotations
@@ -15,13 +23,17 @@ import ctypes
 
 import torch
 
+from ...device import sm_count
 from .. import _build
+from ..flash_attention.ops import HEAD_DIMS
 from .ref import paged_attention_ref
 
-__all__ = ["paged_attention"]
+__all__ = ["paged_attention", "split_pages", "launch_plan"]
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict[torch.dtype, ctypes._CFuncPtr] = {}
+# (device index, stream) -> (partial acc, partial (m, l), counters)
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, ...]] = {}
 
 
 def _fn(dtype: torch.dtype):
@@ -29,11 +41,56 @@ def _fn(dtype: torch.dtype):
     if fn is None:
         fn = getattr(_build.library("paged_attention"),
                      f"paged_attention_fwd_{_SUFFIX[dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
+
+
+_WAVES = 4        # blocks to fill the SMs this many times over
+_MIN_PAGES = 2    # pages a split at least (all of them when fewer)
+
+
+def split_pages(slots: int, n_kv: int, max_blocks: int,
+                sms: int) -> tuple[int, int]:
+    """``(splits, pages per split)`` for a grid of ``slots x n_kv x
+    splits`` blocks: enough splits that the grid fills ``sms`` SMs
+    ``_WAVES`` times, but at least ``_MIN_PAGES`` pages a split.  The
+    splits cover ``max_blocks`` exactly: ``splits * pps >= max_blocks``
+    and no split lies wholly past it.  Plain integers only: the choice
+    reads no tensor."""
+    want = max(1, -(-_WAVES * sms // max(1, slots * n_kv)))
+    pps = max(min(_MIN_PAGES, max_blocks), max_blocks // want)
+    return -(-max_blocks // pps), pps
+
+
+def _scratch_for(device: torch.device, stream: int, n_acc: int, n_ml: int,
+                 n_cnt: int) -> tuple[torch.Tensor, ...]:
+    """Scratch for the split partials and the arrival counters, grown on
+    demand.  The counters start at zero and every launch leaves them so;
+    launches on one stream run in order, so they share one set."""
+    key = (device.index, stream)
+    have = _scratch.get(key)
+    if have is not None and have[0].numel() >= n_acc \
+            and have[1].numel() >= n_ml and have[2].numel() >= n_cnt:
+        return have
+    if have is not None:
+        n_acc, n_ml, n_cnt = (max(n, t.numel())
+                              for n, t in zip((n_acc, n_ml, n_cnt), have))
+    have = (torch.empty(n_acc, device=device),
+            torch.empty(n_ml, device=device),
+            torch.zeros(n_cnt, device=device, dtype=torch.int32))
+    _scratch[key] = have
+    return have
+
+
+def launch_plan(q: torch.Tensor, k_pages: torch.Tensor,
+                block_tables: torch.Tensor) -> tuple[int, int]:
+    """``(splits, pages per split)`` of a launch, from the shapes and the
+    card's SM count: no tensor's data is read."""
+    return split_pages(q.shape[0], k_pages.shape[2], block_tables.shape[1],
+                       sm_count(q.device))
 
 
 def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
@@ -63,10 +120,15 @@ def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
                          f"kv_len {tuple(kv_len.shape)} do not match "
                          f"{slots} slots")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables), ("kv_len", kv_len)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -92,14 +154,24 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check(q, k_pages, v_pages, block_tables, kv_len)
     slots, n_q, hd = q.shape
     _, page_size, n_kv, _ = k_pages.shape
+    max_blocks = block_tables.shape[1]
     scale = (hd ** -0.5) if scale is None else scale
+    splits, pps = launch_plan(q, k_pages, block_tables)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn(q.dtype)(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                       block_tables.data_ptr(), kv_len.data_ptr(),
-                       out.data_ptr(), slots, n_q, n_kv, hd, page_size,
-                       block_tables.shape[1],
-                       -1 if window is None else int(window), scale, stream)
+    part_acc = part_ml = counters = None
+    if splits > 1:
+        part_acc, part_ml, counters = _scratch_for(
+            q.device, stream, slots * n_q * splits * hd,
+            slots * n_q * splits * 2, slots * n_kv)
+    with torch.cuda.device(q.device):       # the attribute and the launch
+        err = _fn(q.dtype)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (part_acc, part_ml, counters)),
+            slots, n_q, n_kv, hd, page_size, max_blocks, splits, pps,
+            -1 if window is None else int(window), scale, stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

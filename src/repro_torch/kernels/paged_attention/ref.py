@@ -6,14 +6,16 @@ slot's pages into its logical stream, then the same float32 scores,
 ``-1e30`` mask fill and float32 softmax cast to the activation dtype as
 :func:`repro_torch.models.layers.gqa_attention`.  The CPU tests and
 ``chip_smoke.py`` hold the CUDA kernel against it; on a CUDA tensor the
-serving path never calls it.
+serving path never calls it.  :func:`paged_attention_split_ref` spells
+out the kernel's split-K over pages and its merge, for the tests.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["write_token_to_pages", "gather_pages", "paged_attention_ref"]
+__all__ = ["write_token_to_pages", "gather_pages", "paged_attention_ref",
+           "paged_attention_split_ref"]
 
 TRASH_PAGE = 0
 
@@ -84,3 +86,57 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bnqs,bsnh->bqnh", probs, v)
     return out[:, 0]
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              kv_len: torch.Tensor, *, pages_per_split: int,
+                              scale: float | None = None,
+                              window: int | None = None) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in float32, for the tests: each slot's
+    pages in splits of ``pages_per_split``, each split's partial ``(m, l,
+    acc)`` over the pages it visits (``[z*pps, (z+1)*pps)`` clipped to
+    ``ceil(kv_len/ps)`` pages and, with ``window >= 1``, from the page of
+    the window's first key), then ``m = max m_i`` and ``out = sum
+    e^(m_i - m) acc_i / max(sum e^(m_i - m) l_i, 1e-30)`` over the splits
+    in order.  A slot with no visited page gives 0."""
+    slots, n_q, hd = q.shape
+    _, ps, n_kv, _ = k_pages.shape
+    max_blocks = block_tables.shape[1]
+    g = n_q // n_kv
+    scale = (hd ** -0.5) if scale is None else scale
+    pps = pages_per_split
+    out = torch.zeros(slots, n_q, hd)
+    for b in range(slots):
+        n = int(kv_len[b])
+        n_pages = min(-(-n // ps), max_blocks) if n > 0 else 0
+        first = max(0, n - window) // ps if window and window >= 1 else 0
+        parts = []
+        for z in range(-(-max_blocks // pps)):
+            lo, hi = max(z * pps, first), min(z * pps + pps, n_pages)
+            if hi <= lo:
+                continue
+            pages = block_tables[b, lo:hi].long()
+            k = k_pages[pages].float().reshape(-1, n_kv, hd)
+            v = v_pages[pages].float().reshape(-1, n_kv, hd)
+            k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+            pos = torch.arange(lo * ps, hi * ps)
+            ok = pos < n
+            if window is not None:
+                ok &= pos > n - 1 - window
+            s = torch.einsum("nh,knh->nk", q[b].float(), k) * scale
+            s = torch.where(ok[None], s, -1e30)
+            m = s.max(1).values
+            p = torch.exp(s - m[:, None])
+            parts.append((m, p.sum(1), torch.einsum("nk,knh->nh", p, v)))
+        if parts:
+            m = torch.stack([pm for pm, _, _ in parts]).max(0).values
+            num = torch.zeros(n_q, hd)
+            den = torch.zeros(n_q)
+            for pm, pl, pa in parts:
+                w = torch.exp(pm - m)
+                num += w[:, None] * pa
+                den += w * pl
+            out[b] = num / torch.clamp(den, min=1e-30)[:, None]
+    return out.to(q.dtype)
