@@ -52,10 +52,12 @@ code is non-zero):
 9. ``train_profile`` — one more period of the int8 session under
    ``torch.profiler``: device ms per step by kernel class and the
    device's busy share of the wall time.
-10. ``kernel`` (SSD) — the SSD chunk kernel against its plain version at
-   the Mamba-2 serve phase's own geometry (B 2, NC 4, 48 heads, cs 128,
-   p 64, n 128; x float32, b and c bfloat16), at B 1 x NC 8 all float32
-   and at the smoke widths (cs 8, p 8, n 16), held to ``1e-4 *
+10. ``kernel`` (SSD) — the SSD chunk kernel against its plain version,
+   first as the Mamba-2 serve phase calls it (``ssd_chunk_grouped`` on
+   the model's layout: B 2, Lp 512, 48 heads, 1 group, cs 128, p 64, n
+   128; x float32, b and c bfloat16 views of one conv output), then in
+   the TPU layout (``ssd_chunk``) at the same cells, at B 1 x NC 8 all
+   float32 and at the smoke widths (cs 8, p 8, n 16), held to ``1e-4 *
    max|plain|`` for y and for the states.
 11. ``mamba2_reference`` — mamba2 SMOKE (float32) served by the
    contiguous engine on the card (through the SSD kernel) must emit
@@ -66,8 +68,8 @@ code is non-zero):
    d_model 1536, random bfloat16 weights from a seeded generator) serves
    12 greedy requests (prompts of 100-1024 tokens, 32 new tokens each,
    one with an EOS) through ``ServeEngine`` on the contiguous backend.
-   The SSD kernel's counter is set to 0 just before and read just
-   after: 48 launches per prefill call.
+   The grouped SSD entry's counter is set to 0 just before and read
+   just after: 48 launches per prefill call.
 13. ``mamba2_profile`` — its decode ticks alone under ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line (each kernel's cases, launches on
@@ -105,7 +107,8 @@ from repro_torch.kernels.fused_adam_sync import fused_adamw  # noqa: E402
 from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
                                             quantize_rows)
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_chunk  # noqa: E402
+from repro_torch.kernels.ssd_scan import (ssd_chunk,  # noqa: E402
+                                          ssd_chunk_grouped)
 from repro_torch.models.layers import count_params  # noqa: E402
 from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
@@ -948,52 +951,91 @@ MAMBA_LENS = (100, 100, 250, 333, 480, 480, 512, 640, 777, 900, 1000, 1024)
 MAMBA_ENGINE = EngineConfig(max_batch=8, max_seq=1152, decode_block=8)
 
 
-def ssd_case(*, B, NC, H, cs, p, n, bc_dtype, seed=5):
-    """Chunk inputs with the model's decays: da = -softplus(z) * A, A =
+def _ssd_work(cells, groups_cells, cs, p, n, bc_dtype):
+    """(flops, dtype) pairs over the lower triangle: c.b once per group
+    cell on b/c's type (exact on bfloat16 tensor cores, whose products
+    accumulate in float32); in float32 the exp and the mask product, the
+    y product, the decay scaling, its exp and the state product."""
+    tri = cs * (cs + 1) // 2
+    return [(groups_cells * tri * 2 * n, bc_dtype),
+            (cells * (tri * (2 + 2 * p) + cs * (n + 1) + 2 * cs * p * n),
+             torch.float32)]
+
+
+def ssd_grouped_case(*, B, L, H, G, cs, p, n, bc_dtype, seed=5):
+    """The serve phase's call: x * dt [B, L, H, p] float32 contiguous, b
+    and c [B, L, G, n] as views of one conv output (the model's
+    layout), da [B, L, H] with the model's decays: -softplus(z) * A, A =
     1..16 over the heads (a_log's init, dt_bias 0)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(B, L, H, p, generator=gen, device="cuda")
+    conv = torch.randn(B, L, H * p + 2 * G * n, generator=gen,
+                       device="cuda").to(bc_dtype)
+    b = conv[..., H * p:H * p + G * n].reshape(B, L, G, n)
+    c = conv[..., H * p + G * n:].reshape(B, L, G, n)
+    da = (-torch.nn.functional.softplus(
+        torch.randn(B, L, H, generator=gen, device="cuda"))
+        * torch.linspace(1.0, 16.0, H, device="cuda"))
+    nc = L // cs
+    es = b.element_size()
+    # each input read once (b and c: their own elements, not the view's
+    # row), each output written once
+    nbytes = x.numel() * 4 + 2 * B * L * G * n * es + da.numel() * 4 \
+        + x.numel() * 4 + B * nc * H * p * n * 4
+    work = _ssd_work(B * nc * H, B * nc * G, cs, p, n, bc_dtype)
+    shape = (f"grouped (serve call): B {B}, Lp {L}, H {H}, G {G}, cs {cs}, "
+             f"p {p}, n {n}, x float32, b/c "
+             f"{str(bc_dtype).removeprefix('torch.')} views of the conv "
+             "output")
+    return ssd_chunk_grouped, (x, b, c, da, cs), nbytes, work, shape
+
+
+def ssd_case(*, B, NC, H, cs, p, n, bc_dtype, seed=5):
+    """The TPU layout [B, NC, H, cs, .], one group per head."""
     gen = torch.Generator("cuda").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    a = torch.linspace(1.0, 16.0, H, device="cuda")
     x = rand(B, NC, H, cs, p)
     b, c = rand(B, NC, H, cs, n).to(bc_dtype), rand(B, NC, H, cs, n).to(
         bc_dtype)
     da = (-torch.nn.functional.softplus(rand(B, NC, H, cs))
-          * a[:, None]).contiguous()
+          * torch.linspace(1.0, 16.0, H, device="cuda")[:, None])
     cells = B * NC * H
-    tri = cs * (cs + 1) // 2
     nbytes = sum(t.numel() * t.element_size() for t in (x, b, c, da)) \
         + x.numel() * 4 + cells * p * n * 4          # y, states out
-    # over the lower triangle: c.b on b/c's type (exact on bfloat16
-    # tensor cores, whose products accumulate in float32); in float32 the
-    # exp and the mask product, the y product, the decay scaling of B,
-    # its exp and the state product
-    work = [(cells * tri * 2 * n, bc_dtype),
-            (cells * (tri * (2 + 2 * p) + cs * (n + 1) + 2 * cs * p * n),
-             torch.float32)]
-    shape = (f"B {B}, NC {NC}, H {H}, cs {cs}, p {p}, n {n}, x float32, "
-             f"b/c {str(bc_dtype).removeprefix('torch.')}")
-    return (x, b, c, da), nbytes, work, shape
+    work = _ssd_work(cells, cells, cs, p, n, bc_dtype)
+    shape = (f"TPU layout: B {B}, NC {NC}, H {H}, cs {cs}, p {p}, n {n}, "
+             f"x float32, b/c {str(bc_dtype).removeprefix('torch.')}")
+    return ssd_chunk, (x, b, c, da), nbytes, work, shape
+
+
+def ssd_cases() -> list:
+    """The serve phase's grouped call first (the kernels line's row),
+    then the TPU-layout cases: the same cells, a deeper all-float32 one
+    and the smoke widths."""
+    sc = mamba2_780m.SMOKE
+    return [
+        lambda: ssd_grouped_case(B=2, L=512, H=48, G=1, cs=128, p=64,
+                                 n=128, bc_dtype=torch.bfloat16),
+        lambda: ssd_case(B=2, NC=4, H=48, cs=128, p=64, n=128,
+                         bc_dtype=torch.bfloat16),
+        lambda: ssd_case(B=1, NC=8, H=48, cs=128, p=64, n=128,
+                         bc_dtype=torch.float32),
+        lambda: ssd_case(B=2, NC=3, H=sc.n_heads, cs=sc.chunk,
+                         p=sc.head_dim, n=sc.d_state,
+                         bc_dtype=torch.float32)]
 
 
 def check_ssd() -> dict:
-    """The SSD chunk kernel against its plain version: the serve phase's
-    prefill group first, then a deeper all-float32 case and the smoke
-    widths."""
-    sc = mamba2_780m.SMOKE
-    cases = [dict(B=2, NC=4, H=48, cs=128, p=64, n=128,
-                  bc_dtype=torch.bfloat16),
-             dict(B=1, NC=8, H=48, cs=128, p=64, n=128,
-                  bc_dtype=torch.float32),
-             dict(B=2, NC=3, H=sc.n_heads, cs=sc.chunk, p=sc.head_dim,
-                  n=sc.d_state, bc_dtype=torch.float32)]
+    """The SSD chunk kernel against its plain version at every case of
+    ``ssd_cases``."""
     checks = []
-    for case in cases:
-        args, nbytes, work, shape = ssd_case(**case)
-        y, s = ssd_chunk(*args, impl="cuda")
-        yr, sr = ssd_chunk(*args, impl="ref")
+    for make in ssd_cases():
+        fn, args, nbytes, work, shape = make()
+        y, s = fn(*args, impl="cuda")
+        yr, sr = fn(*args, impl="ref")
         torch.cuda.synchronize()
         errs, rel = [], []
         for got, want in ((y, yr), (s, sr)):
@@ -1012,9 +1054,8 @@ def check_ssd() -> dict:
         row = {"shape": shape, "dtype": "float32 out",
                "max_abs_err": max(errs), "max_abs_err_y_states": errs,
                "err_over_max_plain_y_states": rel, "tol": SSD_TOL,
-               "ms": median_ms(lambda a=args: ssd_chunk(*a, impl="cuda")),
-               "plain_ms": median_ms(lambda a=args: ssd_chunk(*a,
-                                                              impl="ref")),
+               "ms": median_ms(lambda: fn(*args, impl="cuda")),
+               "plain_ms": median_ms(lambda: fn(*args, impl="ref")),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                "library": "none: no single PyTorch call computes y and the "
                           "chunk states",
@@ -1045,7 +1086,7 @@ def mamba2_reference() -> dict:
     cpu_params = _to(params, "cpu")
     rng = np.random.default_rng(4)
     vocab = model.cfg.vocab
-    ssd_chunk.launches = 0
+    ssd_chunk_grouped.launches = 0
     tok = rng.integers(0, vocab, (3, 21)).astype(np.int32)
     runs = {}
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
@@ -1068,7 +1109,7 @@ def mamba2_reference() -> dict:
         max_batch=4, max_seq=32, decode_block=4), device="cuda")
     comps = eng.generate([Request(tokens=p, max_new_tokens=g)
                           for p, g in zip(prompts, budgets, strict=True)])
-    if ssd_chunk.launches == 0:
+    if ssd_chunk_grouped.launches == 0:
         raise RuntimeError("mamba2_reference did not go through the SSD "
                            "kernel")
     loop = NaiveLoop(model, cpu_params, device="cpu")
@@ -1079,7 +1120,7 @@ def mamba2_reference() -> dict:
     return {"phase": "mamba2_reference", "requests": len(comps),
             "tokens": sum(len(c.tokens) for c in comps), "match": True,
             "max_abs_logit_err": err, "logit_tol": MAMBA_REF_TOL,
-            "ssd_launches": ssd_chunk.launches}
+            "ssd_launches": ssd_chunk_grouped.launches}
 
 
 def mamba_requests(vocab: int, eos_req: int | None = None,
@@ -1091,7 +1132,7 @@ def mamba2_serve(model, params) -> dict:
     cfg = model.cfg
     common, engine, launches = drive_serve(
         model, params, MAMBA_ENGINE, mamba_requests,
-        {"ssd_chunk_fwd": ssd_chunk})
+        {"ssd_chunk_fwd": ssd_chunk_grouped})
     if launches["ssd_chunk_fwd"] != cfg.n_layers * common["prefill_batches"]:
         raise RuntimeError(f"ssd_chunk_fwd launched {launches} for "
                            f"{common['prefill_batches']} prefill calls of "

@@ -4,8 +4,8 @@ Each source in ``csrc/`` becomes one shared library with a plain C
 interface (pointers, ints, a float scale and the CUDA stream), compiled
 for Hopper (``sm_90a``) into ``build/repro_torch_kernels/`` at the root
 of the checkout on first use.  The file name carries a digest of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Several sources build in parallel, one ``nvcc``
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.  Several sources build in parallel, one ``nvcc``
 each.  Nothing is imported or compiled when this module is imported.
 """
 
@@ -48,7 +48,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -59,150 +59,44 @@
 //   that latency, not either peak.  wgmma fed by TMA and a producer warp
 //   is for prompts long enough to be bound by operations.
 //
-// float32: the first design, kept (TF32 would break the float32
-// tolerance).  One thread block per (b * n_q + h, 64-row query tile);
-// each of its 64 threads owns one query row and keeps that row's q, its
-// float32 accumulator, running max and sum in registers, and the block
-// loops over K/V tiles staged in shared memory as float32, from the first
-// key inside its first row's window up to its causal limit, on the CUDA
-// cores (67 TFLOP/s: bound by operations).
+// float32: a redesign of the first float32 kernel (one thread per query
+// row on the CUDA cores, every K/V tile loaded once per query head, each
+// FMA reading shared memory), which ran at 1.23-1.41x SDPA's time.
+// Bound: operations, QK^T and PV over the causal triangle at the 67
+// TFLOP/s of float32 outside the tensor cores (b 1, s 512, 32/8 heads,
+// hd 64: 0.0161 ms).
+//   * The bfloat16 design's structure: (position, query head) rows of one
+//     KV head, 64 of them in a block of 4 warps (16 a warp), so each K/V
+//     tile is loaded once for the g heads; a 2-stage cp.async ring of
+//     32-key float32 tiles (hd 128 takes 99 KB, two blocks an SM); the
+//     online softmax on the fragments in the log2 domain; masks only on
+//     cut tiles; the heaviest tiles first.
+//   * P V on the tensor cores in 3xTF32: m16n8k8 tf32 mma with a = a_hi +
+//     a_lo (cvt.rna.tf32.f32 of a, then of a - a_hi) and a_lo b_hi + a_hi
+//     b_lo + a_hi b_hi.  The contraction over keys is permuted (logical
+//     t, t + 4 -> keys 2t, 2t + 1), so the score accumulators (columns
+//     2t, 2t + 1) are the A fragments as they stand, and V's rows are
+//     read in the same order.
+//   * Q K^T on the CUDA cores in exact float32 FMA, each thread a register
+//     tile of 2 rows by 8 keys laid out as the mma accumulators (16-byte
+//     loads of Q and K).  3xTF32 there missed the float32 tolerance of
+//     2e-5 on steep scores (q x 30: 5.1e-5 at hd 64, 9.3e-5 at hd 128):
+//     the tensor cores lose low bits of a score relative to its largest
+//     product, and the exponent turns that into a relative error of p.
+//     Accumulating each k step apart or the small terms apart did not
+//     help; exact FMA gives 6e-6 (PERF.md, PR 15).
+//   * Rows are HD + 4 floats, so the quarter-warp 16-byte loads of Q K^T
+//     and the 4-byte V loads of P V hit distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-// ------------------------------------------------------------ float32 path
-
-constexpr int kBQ = 64;      // query rows per block, one per thread
-constexpr int kChunk = 16;   // keys per online-softmax update
-
-template <int HD>
-__host__ __device__ constexpr int tile_keys() {
-  return HD >= 64 ? 4096 / HD : 64;  // K + V tiles: 32 KB of float32
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kBQ)
-    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int sq, int sk, int n_q, int n_kv, int causal,
-                     int window, float scale) {
-  constexpr int BK = tile_keys<HD>();
-  constexpr int HD4 = HD / 4;
-  static_assert(HD % 4 == 0 && BK % kChunk == 0, "tile shape");
-  __shared__ float4 k_s[BK * HD4];
-  __shared__ float4 v_s[BK * HD4];
-
-  const int bh = blockIdx.x;
-  const int b = bh / n_q;
-  const int h = bh - b * n_q;
-  const int kvh = h / (n_q / n_kv);
-  const int q0 = blockIdx.y * kBQ;
-  const int row = q0 + threadIdx.x;
-  const bool valid = row < sq;
-
-  float qr[HD];
-  float acc[HD];
-  const size_t q_off = (((size_t)b * sq + row) * n_q + h) * HD;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = valid ? q[q_off + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  // keys this query tile can see: all of them, or up to its last row,
-  // and with a window none before its first row's window.  Skipping the
-  // leading fully-masked keys changes nothing for a row that sees a key:
-  // the first real score resets l and acc through alpha = 0.
-  const int k_end = causal ? min(sk, min(sq, q0 + kBQ)) : sk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  float* ks = reinterpret_cast<float*>(k_s);
-  float* vs = reinterpret_cast<float*>(v_s);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BK * HD; i += kBQ) {
-      const int t = i / HD, d = i % HD;
-      const int kp = k0 + t;
-      float kx = 0.f, vx = 0.f;
-      if (kp < sk) {
-        const size_t off = (((size_t)b * sk + kp) * n_kv + kvh) * HD + d;
-        kx = k[off];
-        vx = v[off];
-      }
-      ks[i] = kx;
-      vs[i] = vx;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < BK && k0 + c < k_end; c += kChunk) {
-      float s[kChunk];
-      float cmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float4* kt = k_s + (c + j) * HD4;
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < HD4; ++d4) {
-          const float4 kk = kt[d4];
-          dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-          dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-          dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-          dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-        }
-        const int kp = k0 + c + j;
-        const bool ok = kp < sk && (!causal || kp <= row) &&
-                        (window <= 0 || kp > row - window);
-        s[j] = ok ? dot * scale : kNegInf;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = expf(s[j] - m_new);
-        l += p;
-        const float4* vt = v_s + (c + j) * HD4;
-#pragma unroll
-        for (int d4 = 0; d4 < HD4; ++d4) {
-          const float4 vv = vt[d4];
-          acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (valid) {
-    const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) out[q_off + d] = acc[d] / denom;
-  }
-}
-
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
-               int sq, int sk, int n_q, int n_kv, int causal, int window,
-               float scale, cudaStream_t stream) {
-  const dim3 grid(b * n_q, (sq + kBQ - 1) / kBQ);
-  flash_f32_kernel<HD><<<grid, kBQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, sk, n_q,
-      n_kv, causal, window, scale);
-  return (int)cudaGetLastError();
-}
 
 // ----------------------------------------------------------- bfloat16 path
 
@@ -225,34 +119,6 @@ struct Geo {
   static constexpr int SMEM = (ROWS * LD + 2 * STAGES * TILE) * 2;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 B global -> shared; with pred false nothing is read and 16 zero
-// bytes are written
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -265,16 +131,6 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x in one MUFU op (2^-22 relative; -1e30 gives 0)
@@ -606,6 +462,239 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
   }
   return launch_geo<HD, 1>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window,
                            scale, stream);
+}
+
+// ------------------------------------------------------------ float32 path
+
+constexpr int kKeysF = 32;          // keys per float32 K/V tile
+constexpr int kNTF = kKeysF / 8;    // n8 score tiles per K/V tile
+
+template <int HD>
+struct GeoF {
+  // rows of HD + 4 floats: the 16-byte loads of QK^T (keys 2t, t = 0..3,
+  // in a quarter warp) and the 4-byte V loads of PV (rows 2t) each hit
+  // distinct banks
+  static constexpr int LD = HD + 4;
+  static constexpr int CHUNKS = HD / 4;          // 16 B pieces of a row
+  static constexpr int DT = HD / 8;              // n8 tiles of the output
+  static constexpr int ROWS = 16 * kWarps;       // (position, head) rows
+  static constexpr int TILE = kKeysF * LD;       // one K or V tile
+  static constexpr int SMEM = (ROWS * LD + 4 * TILE) * 4;  // Q, 2 stages
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int sq, int sk, int n_q, int n_kv, int causal, int window,
+                     float scale) {
+  using G = GeoF<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* kv_s = q_s + G::ROWS * G::LD;  // stage i: K, then V
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int g = n_q / n_kv;
+  const int b = blockIdx.x / n_kv;
+  const int kvh = blockIdx.x - b * n_kv;
+  // the last query tiles, which see the most keys, go first
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * G::ROWS;
+  const int rows = sq * g;
+  const int pos_first = r0 / g;
+  const int pos_last = min(r0 + G::ROWS - 1, rows - 1) / g;
+  const int k_end = causal ? min(sk, pos_last + 1) : sk;
+  const int k_begin = window > 0 ? max(0, pos_first - window + 1) : 0;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + kKeysF - 1) / kKeysF : 0;
+
+  // Q rows: row r of the block is flattened row r0 + r = pos * g + j
+  for (int i = tid; i < G::ROWS * G::CHUNKS; i += kWarps * 32) {
+    const int r = i / G::CHUNKS, c = i - r * G::CHUNKS;
+    const int fr = r0 + r;
+    const int pos = fr / g;
+    const bool ok = fr < rows;
+    const float* src =
+        ok ? q + (((size_t)b * sq + pos) * n_q + (size_t)kvh * g +
+                  (fr - pos * g)) * HD + c * 4
+           : q;
+    cp_async16(smem_u32(q_s + r * G::LD + c * 4), src, ok);
+  }
+
+  auto load_tile = [&](int tile, int stage) {
+    float* ks = kv_s + stage * 2 * G::TILE;
+    float* vs = ks + G::TILE;
+    const int k0 = k_begin + tile * kKeysF;
+    for (int i = tid; i < kKeysF * G::CHUNKS; i += kWarps * 32) {
+      const int t = i / G::CHUNKS, c = i - t * G::CHUNKS;
+      const int kp = k0 + t;
+      const bool ok = kp < sk;
+      const size_t off =
+          ok ? (((size_t)b * sk + kp) * n_kv + kvh) * HD + c * 4 : 0;
+      cp_async16(smem_u32(ks + t * G::LD + c * 4), k + off, ok);
+      cp_async16(smem_u32(vs + t * G::LD + c * 4), v + off, ok);
+    }
+  };
+
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();  // Q rides in the first group
+
+  // this thread holds rows lane/4 and lane/4 + 8 of the warp's 16 (h)
+  const int ra = r0 + warp * 16 + g8;
+  const int pos[2] = {ra / g, (ra + 8) / g};
+  const float sl2 = scale * kLog2e;
+  const float* q_w = q_s + (warp * 16 + g8) * G::LD;
+
+  float acc[G::DT][4];
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < G::DT; ++d)
+    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; tile it-1's stage is free
+    if (it + 1 < n_tiles) load_tile(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    const float* ks_t = kv_s + (it & 1) * 2 * G::TILE;
+    const float* vs_t = ks_t + G::TILE;
+    const int k0 = k_begin + it * kKeysF;
+
+    // S = Q K^T on the CUDA cores, in the mma accumulator layout: this
+    // thread's rows g and g + 8 against keys 8 nt + 2t and 8 nt + 2t + 1
+    float s[kNTF][4];
+#pragma unroll
+    for (int t = 0; t < kNTF; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+    const float* k_t = ks_t + 2 * t4 * G::LD;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_w + d);
+      const float4 qb = *reinterpret_cast<const float4*>(q_w + 8 * G::LD + d);
+#pragma unroll
+      for (int nt = 0; nt < kNTF; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(k_t + (8 * nt + e) * G::LD + d);
+          float x = s[nt][e], y = s[nt][2 + e];
+          x = fmaf(qa.x, kv.x, x);
+          x = fmaf(qa.y, kv.y, x);
+          x = fmaf(qa.z, kv.z, x);
+          x = fmaf(qa.w, kv.w, x);
+          y = fmaf(qb.x, kv.x, y);
+          y = fmaf(qb.y, kv.y, y);
+          y = fmaf(qb.z, kv.z, y);
+          y = fmaf(qb.w, kv.w, y);
+          s[nt][e] = x;
+          s[nt][2 + e] = y;
+        }
+      }
+    }
+
+    // scale, and mask only where the diagonal, the window or sk cut
+    const bool need_mask = k0 + kKeysF > sk ||
+                           (causal && k0 + kKeysF - 1 > pos_first) ||
+                           (window > 0 && k0 <= pos_last - window);
+    const int c0 = k0 + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lo = window > 0 ? pos[h] - window + 1 - c0 : -c0;
+      const int hi = (causal ? min(pos[h], sk - 1) : sk - 1) - c0;
+#pragma unroll
+      for (int t = 0; t < kNTF; ++t) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[t][2 * h + e] * sl2;
+          if (need_mask) {
+            const int c = t * 8 + e;
+            x = c >= lo && c <= hi ? x : kNegInf;
+          }
+          s[t][2 * h + e] = x;
+        }
+      }
+    }
+
+    // online softmax on the fragments
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int t = 0; t < kNTF; ++t)
+        mx = fmaxf(mx, fmaxf(s[t][2 * h], s[t][2 * h + 1]));
+      const float mn = fmaxf(m_r[h], quad_max(mx));
+      const float al = exp2_fast(m_r[h] - mn);
+      m_r[h] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < kNTF; ++t) {
+        s[t][2 * h] = exp2_fast(s[t][2 * h] - mn);
+        s[t][2 * h + 1] = exp2_fast(s[t][2 * h + 1] - mn);
+        sum += s[t][2 * h] + s[t][2 * h + 1];
+      }
+      l_r[h] = l_r[h] * al + sum;
+#pragma unroll
+      for (int d = 0; d < G::DT; ++d) {
+        acc[d][2 * h] *= al;
+        acc[d][2 * h + 1] *= al;
+      }
+    }
+
+    // acc += P V: the score accumulators of n8 tile j are the tf32 A
+    // fragments of keys 8j.. with logical k t, t + 4 -> keys 2t, 2t + 1
+#pragma unroll
+    for (int j = 0; j < kNTF; ++j) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[j][0], ph[0], pl[0]);
+      split_tf32(s[j][2], ph[1], pl[1]);
+      split_tf32(s[j][1], ph[2], pl[2]);
+      split_tf32(s[j][3], ph[3], pl[3]);
+      const float* vr = vs_t + (j * 8 + 2 * t4) * G::LD + g8;
+#pragma unroll
+      for (int d = 0; d < G::DT; ++d) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(vr[d * 8], bh0, bl0);
+        split_tf32(vr[G::LD + d * 8], bh1, bl1);
+        mma3(acc[d], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = 1.f / fmaxf(quad_sum(l_r[h]), 1e-30f);
+    const int row = ra + 8 * h;
+    if (row < rows) {
+      float* o = out + (((size_t)b * sq + pos[h]) * n_q + (size_t)kvh * g +
+                        (row - pos[h] * g)) * HD + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < G::DT; ++d)
+        *reinterpret_cast<float2*>(o + d * 8) =
+            make_float2(acc[d][2 * h] * inv, acc[d][2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
+               int sq, int sk, int n_q, int n_kv, int causal, int window,
+               float scale, cudaStream_t stream) {
+  using G = GeoF<HD>;
+  if (G::SMEM > 48 * 1024) {  // per launch: the attribute is per device
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        G::SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  const long long rows = (long long)sq * (n_q / n_kv);
+  const dim3 grid(b * n_kv, (unsigned)((rows + G::ROWS - 1) / G::ROWS));
+  flash_f32_kernel<HD><<<grid, kWarps * 32, G::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), sq, sk, n_q,
+      n_kv, causal, window, scale);
+  return (int)cudaGetLastError();
 }
 
 // a window needs causal self-attention with sk >= sq, so that every row

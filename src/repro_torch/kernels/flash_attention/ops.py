@@ -7,9 +7,10 @@ version explicitly; ``impl="cuda"`` insists on the kernel and raises for
 anything it does not take.  There is no fallback from the kernel to the
 plain version.  ``flash_attention.launches`` counts kernel launches.
 
-bfloat16 runs the tensor-core kernel (mma.sync, the g query heads of a
-KV head packed into one block's rows) at every width in ``HEAD_DIMS``;
-float32 runs the CUDA-core kernel.
+Both dtypes pack the g query heads of a KV head into one block's rows,
+at every width in ``HEAD_DIMS``.  bfloat16 runs both products on the
+tensor cores (mma.sync bf16); float32 runs Q K^T in exact float32 FMA
+on the CUDA cores and P V on the tensor cores in 3xTF32.
 """
 
 from __future__ import annotations

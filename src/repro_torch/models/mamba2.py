@@ -16,12 +16,14 @@ float32), with the casts made explicit where torch would refuse mixed
 operands, so bfloat16 rounds where the reference rounds.
 
 The intra-chunk part of the SSD (``y_diag`` and the chunk states) goes
-through :func:`repro_torch.kernels.ssd_scan.ssd_chunk` whenever no
-gradient is needed: the CUDA kernel on the card, its plain version on
-the CPU.  That kernel keeps ``L`` and the state decay in float32, where
-the reference rounds them to the activation dtype (ROADMAP.md C5).  Under
-autograd (``loss``, a training ``apply``) the reference's einsum path
-runs, with its casts.
+through :func:`repro_torch.kernels.ssd_scan.ssd_chunk_grouped` whenever
+no gradient is needed: the CUDA kernel on the card, its plain version on
+the CPU.  It reads the model's ``[B, L, H, P]`` and ``[B, L, G, N]``
+tensors by stride, B and C once per group; that path's inter-chunk term
+contracts C per group too, so nothing is repeated per head.  The kernel
+keeps ``L`` and the state decay in float32, where the reference rounds
+them to the activation dtype (ROADMAP.md C5).  Under autograd (``loss``,
+a training ``apply``) the reference's einsum path runs, with its casts.
 
 The cache is the reference's tuple ``(conv_state [L, S, W-1, C],
 ssm_state [L, S, H, P, N])``; prefill and decode write it **in place**
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.partial_sync import UnitEntry, UnitLayout
-from ..kernels.ssd_scan import ssd_chunk
+from ..kernels.ssd_scan import ssd_chunk_grouped
 from .layers import embed, norm_init, normal, rms_norm, softmax_xent
 
 __all__ = ["Mamba2Config", "Mamba2LM", "ssd_chunked", "ssd_decode_step"]
@@ -135,8 +137,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     ``impl`` picks the intra-chunk path: ``"einsum"`` is the reference's
     arithmetic (and the only one with a backward); ``"cuda"`` / ``"ref"``
-    go through :func:`ssd_chunk`; ``None`` takes the einsum path when
-    autograd needs it and :func:`ssd_chunk` otherwise.
+    go through :func:`ssd_chunk_grouped`; ``None`` takes the einsum path
+    when autograd needs it and :func:`ssd_chunk_grouped` otherwise.
     """
     l_orig = x.shape[1]
     pad = (-l_orig) % chunk
@@ -149,30 +151,28 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     rep = h // g
 
     # fold dt into the input; decay per step
-    xdt = _mul(x, dt[..., None]).reshape(bs, nc, chunk, h, p)
-    da = (dt * (-torch.exp(a_log.float()))).reshape(bs, nc, chunk, h)
-    bq = b.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)
-    cq = c.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)
-    cum = torch.cumsum(da, dim=2)                     # [B,nc,cs,H]
+    xdt = _mul(x, dt[..., None])                      # [B,L,H,P]
+    da = dt * (-torch.exp(a_log.float()))             # [B,L,H]
+    cum = torch.cumsum(da.reshape(bs, nc, chunk, h), dim=2)  # [B,nc,cs,H]
 
     if impl is None:
         impl = "einsum" if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, a_log, b, c)) else None
     if impl == "einsum":
-        seg = _segsum(da.movedim(-1, -2))             # [B,nc,H,cs,cs]
-        L = torch.exp(seg)
+        bq = b.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+        cq = c.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+        xq = xdt.reshape(bs, nc, chunk, h, p)
+        seg = _segsum(da.reshape(bs, nc, chunk, h).movedim(-1, -2))
+        L = torch.exp(seg)                            # [B,nc,H,cs,cs]
         y_diag = _einsum("bzihn,bzjhn,bzhij,bzjhp->bzihp",
-                         cq, bq, L.to(cq.dtype), xdt)
+                         cq, bq, L.to(cq.dtype), xq)
         decay_states = torch.exp(cum[:, :, -1:, :] - cum)
         states = _einsum("bzjhn,bzjh,bzjhp->bzhpn",
-                         bq, decay_states.to(bq.dtype), xdt)
+                         bq, decay_states.to(bq.dtype), xq)
     else:
-        # the kernel's layout: [B, nc, H, cs, .]
-        y_k, states = ssd_chunk(
-            xdt.transpose(2, 3).contiguous(), bq.transpose(2, 3).contiguous(),
-            cq.transpose(2, 3).contiguous(), da.transpose(2, 3).contiguous(),
-            impl=impl)
-        y_diag = y_k.transpose(2, 3)                  # [B,nc,cs,H,P]
+        # the model's own layout, read by stride, B and C once per group
+        y_k, states = ssd_chunk_grouped(xdt, b, c, da, chunk, impl=impl)
+        y_diag = y_k.reshape(bs, nc, chunk, h, p)
 
     # inter-chunk recurrence over chunk states, emitting the state
     # *before* each chunk
@@ -188,8 +188,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     # inter-chunk contribution
     state_decay = torch.exp(cum)                      # [B,nc,cs,H]
-    y_off = _einsum("bzihn,bzhpn,bzih->bzihp",
-                    cq, prev_states, state_decay.to(cq.dtype))
+    if impl == "einsum":
+        y_off = _einsum("bzihn,bzhpn,bzih->bzihp",
+                        cq, prev_states, state_decay.to(cq.dtype))
+    else:
+        # the same contraction per group: group g's C against its rep
+        # heads' states, then the decay
+        y_off = _einsum("bzign,bzgrpn->bzigrp",
+                        c.reshape(bs, nc, chunk, g, n),
+                        prev_states.reshape(bs, nc, g, rep, p, n))
+        y_off = _mul(y_off.reshape(bs, nc, chunk, h, p),
+                     state_decay.to(c.dtype)[..., None])
 
     y = (y_diag + y_off).reshape(bs, l, h, p)
     return y[:, :l_orig], carry

@@ -236,6 +236,24 @@ class TestAttentionKernelsOnTheCard:
                                     "bfloat16", cuda), "bfloat16")
 
     @pytest.mark.parametrize("hd", HEAD_DIMS)
+    @pytest.mark.parametrize("g", [1, 4, 8])
+    def test_flash_f32_every_width_and_group(self, cuda, hd, g):
+        """The 3xTF32 float32 kernel at every width and GQA group."""
+        _flash_check(*_flash_inputs(hd + g, 2, 130, 130, 2 * g, 2, hd,
+                                    "float32", cuda), "float32")
+
+    @pytest.mark.parametrize("hd", HEAD_DIMS)
+    def test_flash_f32_window_and_non_causal(self, cuda, hd):
+        """float32 with a window (g 4) and non-causal with sk != sq (g 8,
+        sk above and below sq)."""
+        _flash_check(*_flash_inputs(hd, 2, 200, 200, 8, 2, hd, "float32",
+                                    cuda), "float32", window=37)
+        for sq, sk in ((70, 150), (150, 33)):
+            _flash_check(*_flash_inputs(hd + sk, 1, sq, sk, 8, 1, hd,
+                                        "float32", cuda), "float32",
+                         causal=False)
+
+    @pytest.mark.parametrize("hd", HEAD_DIMS)
     def test_flash_bf16_wide_grid(self, cuda, hd):
         """A grid of more than two 64-row blocks an SM: the 32-rows-a-warp
         instantiation below hd 128."""

@@ -21,7 +21,7 @@ jnp = jax.numpy
 from repro.configs import mamba2_780m as jax_mamba  # noqa: E402
 from repro_torch.configs import get_arch, mamba2_780m  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_chunk  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk_grouped  # noqa: E402
 from repro_torch.models import Mamba2LM  # noqa: E402
 
 torch.set_num_threads(1)
@@ -127,10 +127,10 @@ def test_loss_and_grads_match_jax_grad(pair, remat):
     tp = params_from_numpy(jp, "cpu")
     for leaf in _flat(tp).values():
         leaf.requires_grad_(True)
-    before = ssd_chunk.launches
+    before = ssd_chunk_grouped.launches
     loss = tm.loss(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
-    assert ssd_chunk.launches == before       # autograd: the einsum path
+    assert ssd_chunk_grouped.launches == before   # autograd: the einsum path
     _close(loss, jloss, 1e-5)
     ours, theirs = _flat(tp), _flat(jax.device_get(jgrads))
     for k in ours:
@@ -194,18 +194,19 @@ def test_prefill_then_decode_equals_apply(pair, n, k):
 def test_prefill_runs_the_kernel_wrapper_once_per_layer(pair, monkeypatch):
     _, _, tm, tp = pair
     import repro_torch.models.mamba2 as mm
-    real, calls = mm.ssd_chunk, []
+    real, calls = mm.ssd_chunk_grouped, []
 
     def spy(*a, **kw):
         calls.append(tuple(a[0].shape))
         return real(*a, **kw)
 
-    monkeypatch.setattr(mm, "ssd_chunk", spy)
-    before = ssd_chunk.launches
+    monkeypatch.setattr(mm, "ssd_chunk_grouped", spy)
+    before = ssd_chunk_grouped.launches
     with torch.no_grad():
         tm.prefill(tp, torch.from_numpy(_tokens(5, (2, 20))),
                    tm.init_cache(2, 24, device="cpu"))
     cfg = mamba2_780m.SMOKE
-    assert calls == [(2, 3, cfg.n_heads, cfg.chunk, cfg.head_dim)] \
+    # x in the model's layout, 20 steps padded to 3 chunks of 8
+    assert calls == [(2, 3 * cfg.chunk, cfg.n_heads, cfg.head_dim)] \
         * cfg.n_layers
-    assert ssd_chunk.launches == before        # CPU tensors: plain version
+    assert ssd_chunk_grouped.launches == before  # CPU tensors: plain version
