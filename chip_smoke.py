@@ -22,8 +22,11 @@ code is non-zero):
    geometry: fused AdamW on the largest leaf (``blocks.mlp.gate.w``,
    ``[4, 8, 2048, 8192]``) in bfloat16 and float32, held to ``atol +
    rtol * |plain|``; the int8 row kernels on one phase's block slices
-   (``[R, 8192]``, ``[R, 2048]``) and the embedding leaf, codes, scales
-   and values **equal** to the plain version's.
+   (gate ``[R, 8192]``, down ``[R, 2048]``, wk/wv ``[R, 512]``, a norm
+   ``[4k, 2048]``) and the embedding leaf, codes, scales and values
+   **equal** to the plain version's, each with its shape's launches in
+   the int8 run as the wrapper counts them (checked, shape by shape,
+   against a reckoning from the plan).
 4. ``reference`` — granite-3-2b SMOKE (float32) served by the paged
    engine on the card (through both kernels) must emit exactly the
    greedy tokens of the plain naive loop on the CPU, same weights.
@@ -80,6 +83,7 @@ source), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -549,22 +553,56 @@ def train_job(algo: str) -> JobConfig:
                      smoke=False)
 
 
-def int8_slice_rows() -> tuple[int, str]:
-    """Layers in the longest contiguous block range that one phase of the
-    train phase's ``dreamddp-int8`` plan syncs."""
-    sess = Session(train_job("dreamddp-int8"), model=DecoderLM(TRAIN_MODEL),
-                   device="cuda")
-    layout = sess.model.unit_layout()
-    best = (0, "")
-    for h, units in enumerate(sess.plan.phase_units):
-        idx = [layout.entries[u].index for u in units
-               if layout.entries[u].group == "blocks"]
-        for lo, hi in contiguous_ranges(idx):
-            if hi - lo > best[0]:
-                best = (hi - lo, f"phase {h}, layers {lo}..{hi - 1}")
+def int8_plan() -> tuple[int, str, dict]:
+    """The train phase's ``dreamddp-int8`` plan, read for the int8 kernel
+    checks: the layers in the longest contiguous block range that one
+    phase syncs, that phase and range, and ``quantize_rows`` launches by
+    ``(rows, cols)`` in the int8 run's TRAIN_STEPS steps, reckoned as the
+    sync cuts the worker-stacked leaves (``tree_unit_map``: a plain
+    group's whole leaves, each contiguous block range's ``[:, lo:hi]``
+    slices; each one row matrix over its last dimension).  The leaf
+    shapes come from fake tensors: no weights are made."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    model = DecoderLM(TRAIN_MODEL)
+    plan = Session(train_job("dreamddp-int8"), model=model,
+                   device="cuda").plan
+    layout = model.unit_layout()
+    with FakeTensorMode():
+        params = model.init(torch.Generator().manual_seed(0))
+        shapes = {group: [(TRAIN_WORKERS, *x.shape)
+                          for x in tree_leaves(tree)]
+                  for group, tree in params.items()}
+    best, launches = (0, ""), collections.Counter()
+    for step in range(TRAIN_STEPS):
+        h = plan.phase_of_iteration(step)
+        for group, idxs in layout.by_group(plan.phase_units[h]).items():
+            ranges = [None] if idxs == [None] else contiguous_ranges(idxs)
+            for cut in ranges:
+                if cut and cut[1] - cut[0] > best[0]:
+                    best = (cut[1] - cut[0],
+                            f"phase {h}, layers {cut[0]}..{cut[1] - 1}")
+                for shape in shapes[group]:
+                    dims = list(shape)
+                    if cut:
+                        dims[1] = cut[1] - cut[0]
+                    launches[(math.prod(dims[:-1]), dims[-1])] += 1
     if not best[0]:
         raise RuntimeError("the int8 plan syncs no block layer")
-    return best
+    return best[0], best[1], dict(launches)
+
+
+def int8_cases(k: int, where: str) -> list[tuple[int, int, str]]:
+    """(rows, cols, what) the int8 sync hands ``quantize_rows`` in the
+    phase that syncs k contiguous layers: the gate slice first (the
+    kernels line's row), then down, the embedding leaf, the wk / wv slice
+    and a norm slice."""
+    cfg, w = TRAIN_MODEL, TRAIN_WORKERS
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    return [(w * k * d, f, f"gate.w slice ({where})"),
+            (w * k * f, d, f"down.w slice ({where})"),
+            (w * cfg.vocab, d, "embed.table"),
+            (w * k * d, kv, f"wk.w / wv.w slice ({where})"),
+            (w * k, d, f"ln1.scale / ln2.scale slice ({where})")]
 
 
 def adam_case(dtype, shape):
@@ -658,20 +696,13 @@ def check_adam() -> dict:
             "checks": checks}
 
 
-def check_int8() -> list[dict]:
+def check_int8(k: int, where: str) -> list[dict]:
     """quantize_rows / dequantize_rows against their plain versions on the
-    rows the int8 sync hands them: one phase's block slices of
-    blocks.mlp.gate.w ([R, 8192]) and blocks.mlp.down.w ([R, 2048]), and
-    the embedding leaf ([W * vocab, 2048]); codes, scales and values must
-    be equal."""
-    k, where = int8_slice_rows()
-    d, f, w = TRAIN_MODEL.d_model, TRAIN_MODEL.d_ff, TRAIN_WORKERS
-    cases = [(w * k * d, f, f"gate.w slice ({where})"),
-             (w * k * f, d, f"down.w slice ({where})"),
-             (w * TRAIN_MODEL.vocab, d, "embed.table")]
+    rows the int8 sync hands them (``int8_cases``); codes, scales and
+    values must be equal."""
     rows = {"quantize_rows": [], "dequantize_rows": []}
     gen = torch.Generator("cuda").manual_seed(8)
-    for r, c, what in cases:
+    for r, c, what in int8_cases(k, where):
         x = torch.randn(r, c, generator=gen, device="cuda").mul_(0.02)
         x[0] = 0.0                                   # a zero row
         q, s = quantize_rows(x, impl="cuda")
@@ -705,6 +736,7 @@ def check_int8() -> list[dict]:
             b_ms, b_by = bound(nbytes, (flops, torch.float32))
             row = {"shape": shape, "dtype": "float32 -> int8" if
                    name == "quantize_rows" else "int8 -> float32",
+                   "matrix": [r, c],
                    "max_abs_err": 0.0, "ms": median_ms(fn),
                    "plain_ms": median_ms(ref, reps=10), "bound_ms": b_ms,
                    "bound_by": b_by,
@@ -722,9 +754,28 @@ def check_int8() -> list[dict]:
                                ("dequantize_rows", 63))]
 
 
+def int8_launches(kernels: list[dict], reckoned: dict,
+                  measured: list[dict]) -> None:
+    """Puts the int8 run's ``quantize_rows`` launches by shape, as the
+    wrapper counted them (``measured``), on its kernels-line entry and on
+    each of its check rows, after holding them, shape by shape, to
+    ``int8_plan``'s reckoning."""
+    counted = {tuple(e["shape"]): e["launches"] for e in measured}
+    if counted != reckoned:
+        raise RuntimeError(f"quantize_rows launched {counted} by shape in "
+                           f"the int8 run; the plan reckons {reckoned}")
+    for k in kernels:
+        if k["name"] == "quantize_rows":
+            k["launches_by_shape"] = measured
+            for row in k["checks"]:
+                row["launches_of_shape"] = counted.get(tuple(row["matrix"]),
+                                                       0)
+
+
 def _reset_train_counts() -> None:
     fused_adamw.launches = 0
     quantize_rows.launches = 0
+    quantize_rows.launches_by_shape.clear()
     dequantize_rows.launches = 0
 
 
@@ -810,6 +861,8 @@ def train(algo: str, *, keep: bool = False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _train_counts()
+    by_shape = [{"shape": list(shape), "launches": n} for shape, n in
+                quantize_rows.launches_by_shape.most_common()]
     losses = [h["loss"] for h in sess.history]
     second = [h["time"] for h in sess.history[TRAIN_H:2 * TRAIN_H]]
     ms = statistics.median(second) * 1e3
@@ -849,6 +902,7 @@ def train(algo: str, *, keep: bool = False):
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "first_loss": losses[0], "last_loss": losses[-1],
         "losses": losses, "launches": counts,
+        "quantize_rows_launches_by_shape": by_shape,
     }
     if keep:
         return result, sess
@@ -1197,6 +1251,8 @@ def kernel_rows(kernels: list[dict], launches: dict) -> list[dict]:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "shape": main_row["shape"], "dtype": main_row["dtype"],
+            **({"launches_by_shape": k["launches_by_shape"]}
+               if "launches_by_shape" in k else {}),
             "ptxas": ptxas(Path(k["source"]).stem),
             "checks": k["checks"],
         })
@@ -1236,12 +1292,14 @@ def main() -> int:
     _free()
     rows = kernel_rows(kernels, result["launches"])
 
-    kernels = [check_adam(), *check_int8()]
+    k, where, reckoned = int8_plan()
+    kernels = [check_adam(), *check_int8(k, where)]
     emit(train_reference())
     plain, _ = train("dreamddp")
     emit(plain)
     int8, sess = train("dreamddp-int8", keep=True)
     emit(int8)
+    int8_launches(kernels, reckoned, int8["quantize_rows_launches_by_shape"])
     emit(train_profile(sess, int8["ms_per_step"]))
     del sess
     _free()

@@ -7,8 +7,9 @@ GPU, under both of ``chip_smoke.py``'s timing methods.
         --parent build/parent/src/repro_torch/kernels
 
 ``--parent`` is the ``kernels`` package of another checkout.  Its
-``flash_attention.cu``, ``paged_attention.cu`` and ``ssd_scan.cu`` are
-built with this checkout's nvcc flags into ``build/parent_kernels/``,
+``flash_attention.cu``, ``paged_attention.cu``, ``ssd_scan.cu`` and
+``int8_quant.cu`` are built with this checkout's nvcc flags into
+``build/parent_kernels/``,
 and its wrappers (``ops.py``) are loaded over those libraries, so that
 its host work is timed as it ran; the wrappers' own imports other than
 ``_build`` come from this checkout.
@@ -22,7 +23,15 @@ max|plain|``; the earlier wrapper takes the TPU layout only, so at the
 grouped (serve) case it is timed on the TPU-layout copies of the same
 cells (``parent``) and, as the earlier model ran it, with those copies
 made in the call (``parent_with_copies``: four transposed copies and
-two head repeats); the plain version is the yardstick.  Each time is a
+two head repeats); the plain version is the yardstick.  int8
+``quantize_rows``: at every ``[rows, cols]`` the train phase's int8 run
+quantizes (``chip_smoke.int8_plan``, which includes every case of
+``chip_smoke.int8_cases``), both kernels' codes and scales must equal
+the plain version's; each line gives its shape's launches in that run
+(``int8_plan``'s reckoning, which ``chip_smoke.py`` holds, shape by
+shape, to the wrapper's own count in the int8 run) and its byte bound,
+and a last line the launch-weighted device ms of both kernels over the
+run and their gap to the bound.  Each time is a
 ``median_ms(hold=True)`` (device work alone: ``device_ms``) and
 ``hold=False`` (a host enqueue slower than the L2 flush counts:
 ``unheld_ms``), in two rounds run in opposite orders.  Needs one CUDA
@@ -50,7 +59,8 @@ from repro_torch.kernels import _build  # noqa: E402
 
 # source -> the wrapper it exposes
 WRAPPERS = {"paged_attention": "paged_attention",
-            "flash_attention": "flash_attention", "ssd_scan": "ssd_chunk"}
+            "flash_attention": "flash_attention", "ssd_scan": "ssd_chunk",
+            "int8_quant": "quantize_rows"}
 
 
 def parent_wrappers(kernels: Path) -> dict:
@@ -167,6 +177,41 @@ def ssd_rows(parent) -> None:
         cs._free()
 
 
+def int8_rows(parent) -> None:
+    k, where, launches = cs.int8_plan()
+    what = {(r, c): w for r, c, w in cs.int8_cases(k, where)}
+    gen = torch.Generator("cuda").manual_seed(8)
+    total = {"parent": 0.0, "new": 0.0, "bound": 0.0}
+    for (r, c), n in sorted(launches.items(), key=lambda kv: -kv[0][0]
+                            * kv[0][1]):
+        x = torch.randn(r, c, generator=gen, device="cuda").mul_(0.02)
+        x[0] = 0.0                                   # a zero row
+        want = cs.quantize_rows(x, impl="ref")
+        calls = {"parent": lambda x=x: parent(x, impl="cuda"),
+                 "new": lambda x=x: cs.quantize_rows(x, impl="cuda")}
+        for who, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+                raise RuntimeError(f"quantize_rows {who} [{r}, {c}]: codes "
+                                   "or scales differ from the plain version")
+        b_ms, _ = cs.bound(r * c * 5 + r * 4, (5 * r * c, torch.float32))
+        row = timed(calls)
+        for who in ("parent", "new"):
+            total[who] += n * sum(row["device_ms"][who]) / 2
+        total["bound"] += n * b_ms
+        cs.emit({"kernel": "quantize_rows", "shape": [r, c],
+                 "what": what.get((r, c), ""), "launches": n,
+                 "bound_ms": b_ms, **row})
+        del x, want, calls
+        cs._free()
+    cs.emit({"kernel": "quantize_rows", "int8_run_launches":
+             sum(launches.values()),
+             "device_ms_weighted_by_launches": total,
+             "gap_to_bound_ms": {who: total[who] - total["bound"]
+                                 for who in ("parent", "new")}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
@@ -205,6 +250,7 @@ def main() -> int:
                     calls["library"] = library
                 cs.emit({**row, **timed(calls)})
     ssd_rows(parent["ssd_scan"])
+    int8_rows(parent["int8_quant"])
     print(smi, flush=True)
     cs.emit({"ok": True})
     return 0

@@ -24,9 +24,16 @@ On the CPU:
   ``Int8EFSync.apply`` and ``OuterOptSync.apply`` on a worker-stacked
   tree, float32 ``1e-6``.
 
+On the CPU too, the int8 quantize kernel's row geometry (the table the
+wrapper passes to the kernel): every width from 1 to 70000 falls in
+exactly one geometry that holds it, within the register and
+shared-memory budgets.
+
 On the card (``-m gpu``; skipped without CUDA): the CUDA kernels against
 their plain versions on the same tensors — the int8 codes, scales and
-dequantized values exactly; fused AdamW float32 ``rtol=atol=1e-6`` and
+dequantized values exactly (every geometry's boundary widths, odd
+widths, misaligned rows, the .5 ties on every lane and vector slot);
+fused AdamW float32 ``rtol=atol=1e-6`` and
 bfloat16 within one bfloat16 rounding (the kernel and the plain version
 do the same correctly rounded float32 operations; only ``powf`` in the
 bias corrections may differ in the last place).  Run there with
@@ -46,6 +53,7 @@ from repro_torch.kernels.fused_adam_sync import (fused_adamw,  # noqa: E402
                                                  fused_adamw_ref)
 from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
                                             quantize_rows)
+from repro_torch.kernels.int8_quant import ops as int8_ops  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.parallel.compression import (  # noqa: E402
     compressed_worker_mean, dequantize_int8, quantize_int8)
@@ -125,12 +133,13 @@ def test_cpu_tensors_take_the_plain_versions_and_cuda_impl_raises():
     p, g, m, v = (_t(a) for a in _adam_case((10,), 0))
     hyper = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 0.0, 1.0])
     before = (fused_adamw.launches, quantize_rows.launches,
-              dequantize_rows.launches)
+              dequantize_rows.launches, dict(quantize_rows.launches_by_shape))
     fused_adamw(p, g, m, v, hyper)
     q, s = quantize_rows(torch.ones(2, 4))
     dequantize_rows(q, s)
     assert (fused_adamw.launches, quantize_rows.launches,
-            dequantize_rows.launches) == before
+            dequantize_rows.launches,
+            dict(quantize_rows.launches_by_shape)) == before
     with pytest.raises(ValueError, match="CUDA"):
         fused_adamw(p, g, m, v, hyper, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
@@ -277,6 +286,44 @@ def test_int8_ties_and_zero_rows_match_jax_exactly():
     np.testing.assert_array_equal(_np(q)[0, :10],
                                   [127, 0, 2, 2, 0, -2, -2, 126, -126, 64])
     assert not _np(q)[-2:].any()
+
+
+# The register rows the geometry table promises at the sync's widths.
+INT8_WIDTHS = {512: (32, 4), 2048: (128, 4), 8192: (256, 8)}
+
+
+def _int8_sample_widths():
+    """Every width to 1100, each table width and MAX_STAGED with its
+    neighbours, and a stride through 70000."""
+    edges = [w for w, _, _ in int8_ops.REGISTER_GEOMETRY] \
+        + [int8_ops.MAX_STAGED]
+    near = {e + d for e in edges for d in (-1, 0, 1)}
+    return sorted(set(range(1, 1100)) | near | set(range(1100, 70001, 389))
+                  | {70000})
+
+
+def test_int8_quantize_geometry_covers_each_row_once():
+    """Each width takes the narrowest register row whose T threads of 4V
+    floats hold it, 4V <= 32 floats a thread, blocks of 256 threads
+    (256 / T rows) up to T = 256; beyond, one 1024-thread block a row,
+    staged in at most 224 KB of shared memory.  Which thread holds which
+    element is the kernel's indexing, checked on the card."""
+    table = int8_ops.REGISTER_GEOMETRY
+    for cols in _int8_sample_widths():
+        threads, vecs, staged = int8_ops.quantize_geometry(cols)
+        if vecs == 0:                               # the loop kernel
+            assert threads == int8_ops.LOOP_THREADS
+            assert cols > table[-1][0]
+            assert staged == (cols <= int8_ops.MAX_STAGED)
+            continue
+        i = [g[1:] for g in table].index((threads, vecs))
+        assert not staged and (table[i - 1][0] if i else 0) < cols \
+            <= table[i][0] <= 4 * vecs * threads
+        assert 4 * vecs <= 32 and threads % 32 == 0 and threads <= 512
+        assert (256 % threads == 0) if threads <= 256 else threads % 256 == 0
+    assert int8_ops.MAX_STAGED * 4 + 4 * 32 <= 232448   # + the reduction
+    for cols, want in INT8_WIDTHS.items():
+        assert int8_ops.quantize_geometry(cols) == (*want, False)
 
 
 def test_quantize_int8_axes_match_jax():
@@ -430,18 +477,34 @@ class TestCudaKernels:
         for x, y in zip(a, b, strict=True):
             np.testing.assert_allclose(_np(x), _np(y), rtol=tol, atol=tol)
 
-    @pytest.mark.parametrize("r,c", [(1, 8), (5, 13), (77, 33), (64, 2048),
-                                     (4097, 8192)])
-    def test_int8_kernels_equal_ref(self, cuda, r, c):
+    @pytest.mark.parametrize("r,c", [
+        (1, 8), (5, 13), (77, 33), (64, 2048), (4097, 8192),
+        # each register geometry's last width and one past it (512,
+        # 2048, 8192, 16384), and widths inside them
+        (9, 128), (9, 129), (9, 256), (9, 257), (77, 512), (77, 513),
+        (9, 1024), (9, 1025), (3, 2048), (3, 2049), (5, 4096), (5, 4097),
+        (5, 8192), (5, 8193), (3, 16384), (3, 16385),
+        # odd widths, rows staged in shared memory, rows read twice
+        (33, 3), (7, 4099), (3, 20000), (2, 57344), (2, 57345), (2, 70000),
+        # few rows, rows not a multiple of a block's
+        (4, 2048), (8, 2048), (16, 2048), (1001, 512), (999, 2048)])
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_int8_kernels_equal_ref(self, cuda, r, c, offset):
         rng = np.random.default_rng(r + c)
-        x = _t((rng.standard_normal((r, c)) * 3).astype(np.float32), cuda)
+        # offset 1: contiguous rows 4 bytes past 16-byte alignment take
+        # the scalar loads
+        buf = _t((rng.standard_normal(r * c + offset) * 3)
+                 .astype(np.float32), cuda)
+        x = buf[offset:].view(r, c)
         x[0] = 0.0
-        before = (quantize_rows.launches, dequantize_rows.launches)
+        before = (quantize_rows.launches, dequantize_rows.launches,
+                  quantize_rows.launches_by_shape[(r, c)])
         q, s = quantize_rows(x)
         d = dequantize_rows(q, s)
         torch.cuda.synchronize()
-        assert (quantize_rows.launches, dequantize_rows.launches) == \
-            (before[0] + 1, before[1] + 1)
+        assert (quantize_rows.launches, dequantize_rows.launches,
+                quantize_rows.launches_by_shape[(r, c)]) == \
+            (before[0] + 1, before[1] + 1, before[2] + 1)
         qr, sr = quantize_rows(x, impl="ref")
         assert torch.equal(q, qr) and torch.equal(s, sr)
         assert torch.equal(d, dequantize_rows(qr, sr, impl="ref"))
@@ -459,6 +522,24 @@ class TestCudaKernels:
                                .reshape(-1, 12), impl="ref")
         deq = dequantize_rows(*want_q, impl="ref").reshape(3, 2, 6, 12)
         torch.testing.assert_close(got[1], p[:, 1:3] - deq, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("cols", [512, 2048, 8192])
+    def test_int8_kernel_ties_on_every_lane(self, cuda, cols):
+        """The tie rows tiled across a row, rolled by one element a row,
+        so that exact .5 quotients fall on every lane, warp and float4
+        slot of the geometry."""
+        ties = _tie_rows()
+        reps = -(-cols // ties.shape[1])
+        rows = np.concatenate([np.roll(np.tile(t, reps)[:cols], k)[None]
+                               for t in ties for k in range(13)])
+        x = _t(rows, cuda)
+        q, s = quantize_rows(x)
+        qr, sr = quantize_rows(x, impl="ref")
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        want = np.round(rows / _np(sr)).clip(-127, 127)   # half to even
+        np.testing.assert_array_equal(_np(q), want.astype(np.int8))
+        assert torch.equal(dequantize_rows(q, s),
+                           dequantize_rows(qr, sr, impl="ref"))
 
     def test_wrappers_reject_what_the_kernels_do_not_take(self, cuda):
         p = torch.zeros(8, device=cuda)
