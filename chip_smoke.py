@@ -28,22 +28,41 @@ code is non-zero):
    the int8 run as the wrapper counts them (checked, shape by shape,
    against a reckoning from the plan).
 4. ``reference`` — granite-3-2b SMOKE (float32) served by the paged
-   engine on the card (through both kernels) must emit exactly the
-   greedy tokens of the plain naive loop on the CPU, same weights.
-5. ``serve``   — granite-3-2b at full width and depth (40 layers, random
+   engine on the card (through both kernels, decode blocks as CUDA
+   graph replays) must emit exactly the greedy tokens of the plain
+   naive loop on the CPU, same weights.
+5. ``graph_check`` — the decode block as a CUDA graph against the same
+   body run eagerly (``cuda_graphs=False``), in lockstep: granite SMOKE
+   on the paged and contiguous backends and mamba2 SMOKE on the
+   contiguous one, greedy and with sampling requests; each block's
+   logits **bitwise** equal, then streams and every ``EngineStats``
+   counter equal, and the paged kernel's launches per replay exactly
+   layers x ``decode_block``.
+6. ``serve``   — granite-3-2b at full width and depth (40 layers, random
    bfloat16 weights from a seeded generator) serves 12 greedy requests
    (prompts of 64-512 tokens, 32 new tokens each, one with an EOS)
-   through ``ServeEngine(kv_backend="paged")``.  Launch counters are set
-   to 0 just before and read just after: both kernels must have run.
-6. ``profile`` — decode ticks alone under ``torch.profiler``: device
-   time per tick by kernel class, to set beside the serve phase's
+   through ``ServeEngine(kv_backend="paged")``, every decode block one
+   graph replay.  The engine is built (its graphs captured) before the
+   launch counters are set to 0; they are read just after the run.  A
+   kernel's launches are its wrapper's count (prefill: flash) plus
+   replays x the launches its graph holds (decode: paged), checked
+   exactly against 40 x ``decode_block`` x replays.  Also reported:
+   graphs captured, capture seconds, replays, masked ticks.
+7. ``profile`` — decode blocks alone under ``torch.profiler``: device
+   time per tick by kernel class (kernels inside graph replays; CUDA
+   events around each block besides), the host's launch calls per
+   block and the device's busy share, to set beside the serve phase's
    unprofiled ms per tick.
-7. ``train_reference`` — granite-3-2b SMOKE (float32), W=2, H=5, 10
+8. ``train_reference`` — granite-3-2b SMOKE (float32), W=2, H=5, 10
    steps of ``Session.fit`` for ``dreamddp`` and ``dreamddp-int8`` on the
    card (through the training kernels) and on the CPU (plain versions)
    from the same initial parameters and batches: per-step losses and
    final parameters within the float32 tolerances of ``TRAIN_REF_TOL``.
-8. ``train``   — granite-3-2b at published widths, depth cut 40 -> 8 and
+   ``Session.serve().generate(tokens, 4)`` (greedy, graphed on the card)
+   equal on both before the fit, and after it equal to a CPU engine on
+   the card session's own parameters; the second ``serve()`` returns
+   the same engine and captures nothing.
+9. ``train``   — granite-3-2b at published widths, depth cut 40 -> 8 and
    workers 8 -> 4 (the worker-stacked state has to fit one card),
    bfloat16, ``Session(JobConfig(workers=4, period=5,
    batch_per_worker=4, seq=512, smoke=False))`` for 10 steps with
@@ -52,28 +71,29 @@ code is non-zero):
    after: fused AdamW must run 11 x steps, the int8 kernels in the int8
    run.  Reports ms/step (the second period's time / H), tokens/s,
    MFU, peak memory, first and last loss (finite, falling).
-9. ``train_profile`` — one more period of the int8 session under
+10. ``train_profile`` — one more period of the int8 session under
    ``torch.profiler``: device ms per step by kernel class and the
    device's busy share of the wall time.
-10. ``kernel`` (SSD) — the SSD chunk kernel against its plain version,
+11. ``kernel`` (SSD) — the SSD chunk kernel against its plain version,
    first as the Mamba-2 serve phase calls it (``ssd_chunk_grouped`` on
    the model's layout: B 2, Lp 512, 48 heads, 1 group, cs 128, p 64, n
    128; x float32, b and c bfloat16 views of one conv output), then in
    the TPU layout (``ssd_chunk``) at the same cells, at B 1 x NC 8 all
    float32 and at the smoke widths (cs 8, p 8, n 16), held to ``1e-4 *
    max|plain|`` for y and for the states.
-11. ``mamba2_reference`` — mamba2 SMOKE (float32) served by the
+12. ``mamba2_reference`` — mamba2 SMOKE (float32) served by the
    contiguous engine on the card (through the SSD kernel) must emit
    exactly the greedy tokens of the plain naive loop on the CPU, same
    weights, and its prefill and decode logits must agree within
    ``MAMBA_REF_TOL``.
-12. ``mamba2_serve`` — mamba2-780m at full width and depth (48 layers,
+13. ``mamba2_serve`` — mamba2-780m at full width and depth (48 layers,
    d_model 1536, random bfloat16 weights from a seeded generator) serves
    12 greedy requests (prompts of 100-1024 tokens, 32 new tokens each,
-   one with an EOS) through ``ServeEngine`` on the contiguous backend.
+   one with an EOS) through ``ServeEngine`` on the contiguous backend,
+   decode blocks as graph replays (which launch no kernel of the port).
    The grouped SSD entry's counter is set to 0 just before and read
    just after: 48 launches per prefill call.
-13. ``mamba2_profile`` — its decode ticks alone under ``torch.profiler``.
+14. ``mamba2_profile`` — its decode blocks alone under ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line (each kernel's cases, launches on
 its path, and ptxas's registers, shared memory and spills for its
@@ -104,7 +124,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api import JobConfig, Session  # noqa: E402
 from repro_torch.configs import granite_3_2b, mamba2_780m  # noqa: E402
-from repro_torch.core.partial_sync import contiguous_ranges  # noqa: E402
+from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
+                                           worker_unstack)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_adam_sync import fused_adamw  # noqa: E402
@@ -117,7 +138,7 @@ from repro_torch.models.layers import count_params  # noqa: E402
 from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
-                               ServeEngine)
+                               SamplingParams, ServeEngine)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 3.35 TB/s,
@@ -345,10 +366,11 @@ def reference_check() -> dict:
     eng = ServeEngine(model, params, EngineConfig(
         max_batch=4, max_seq=32, decode_block=4, kv_backend="paged",
         page_size=8), device="cuda")
-    f0, p0 = flash_attention.launches, paged_attention.launches
+    f0 = flash_attention.launches
     comps = eng.generate([Request(tokens=p, max_new_tokens=g)
                           for p, g in zip(prompts, budgets, strict=True)])
-    if flash_attention.launches == f0 or paged_attention.launches == p0:
+    if flash_attention.launches == f0 or not eng.block_stats \
+            .kernel_launches().get("paged_attention"):
         raise RuntimeError("reference run did not go through both kernels")
     loop = NaiveLoop(model, cpu_params, device="cpu")
     for c, p, g in zip(comps, prompts, budgets, strict=True):
@@ -363,6 +385,88 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+GRAPH_LENS = (6, 6, 9, 12, 6, 3, 17)          # graph_check's prompts
+GRAPH_BUDGETS = (5, 3, 7, 2, 6, 4, 9)
+
+
+def graph_check() -> dict:
+    """Each decode path's graphs against the same body run eagerly, in
+    lockstep on the same requests (7 over 4 slots, decode block 4; the
+    sampled case gives every other request temperature 1.5, top-k 20):
+    logits bitwise equal after every block, then streams, finish reasons
+    and ``EngineStats`` counters equal.  SMOKE configs, float32."""
+    counters = ("requests_completed", "prompt_tokens", "generated_tokens",
+                "decode_ticks", "prefill_batches", "admit_ticks",
+                "slot_ticks_active", "slot_ticks_total")
+    cases = []
+    for family, backend in (("granite-3-2b", "paged"),
+                            ("granite-3-2b", "contiguous"),
+                            ("mamba2-780m", "contiguous")):
+        model = DecoderLM(granite_3_2b.SMOKE) if family == "granite-3-2b" \
+            else Mamba2LM(mamba2_780m.SMOKE)
+        params = model.init(torch.Generator("cuda").manual_seed(0))
+        cfg = EngineConfig(max_batch=4, max_seq=32, decode_block=4,
+                           kv_backend=backend, page_size=8)
+        for sampled in (False, True):
+            rng = np.random.default_rng(7)
+            reqs = [Request(tokens=rng.integers(0, model.cfg.vocab,
+                                                n).tolist(),
+                            max_new_tokens=g, request_id=i,
+                            sampling=SamplingParams(
+                                temperature=1.5, top_k=20, seed=i)
+                            if sampled and i % 2 else SamplingParams())
+                    for i, (n, g) in enumerate(zip(GRAPH_LENS,
+                                                   GRAPH_BUDGETS,
+                                                   strict=True))]
+            graph = ServeEngine(model, params, cfg, device="cuda",
+                                keep_logits=True)
+            eager = ServeEngine(model, params, cfg, device="cuda",
+                                cuda_graphs=False, keep_logits=True)
+            done = {id(graph): [], id(eager): []}
+            for eng in (graph, eager):
+                for r in reqs:
+                    eng.submit(dataclasses.replace(r))
+            blocks = 0
+            while graph.has_work or eager.has_work:
+                for eng in (graph, eager):
+                    done[id(eng)] += eng.step()
+                torch.cuda.synchronize()
+                if not torch.equal(graph.last_logits, eager.last_logits):
+                    diff = (graph.last_logits.float()
+                            - eager.last_logits.float()).abs().max().item()
+                    raise RuntimeError(f"graph_check {family} {backend} "
+                                       f"block {blocks}: logits differ by "
+                                       f"up to {diff}")
+                blocks += 1
+            runs = [({c.request_id: c.tokens for c in done[id(e)]},
+                     {c.request_id: c.finish_reason for c in done[id(e)]},
+                     {k: getattr(e.stats, k) for k in counters})
+                    for e in (graph, eager)]
+            if runs[0] != runs[1]:
+                raise RuntimeError(f"graph_check {family} {backend}: "
+                                   f"{runs[0]} != {runs[1]}")
+            bs = graph.block_stats
+            want = {"paged_attention": model.cfg.n_layers * 4} \
+                if backend == "paged" else {}
+            if bs.replays != blocks or any(
+                    held != want for held in bs.captured_launches.values()):
+                raise RuntimeError(f"graph_check {family} {backend}: "
+                                   f"{bs.replays} replays of {blocks} "
+                                   f"blocks, graphs hold "
+                                   f"{bs.captured_launches}, want {want}")
+            cases.append({
+                "arch": family, "backend": backend,
+                "variant": "sampled" if sampled else "greedy",
+                "blocks": blocks, "replays_by_variant": dict(bs.blocks),
+                "masked_ticks": bs.masked_ticks(4),
+                "captured_launches": bs.captured_launches,
+                "capture_s": bs.capture_s, "bitwise_logits": True,
+                "streams_equal": True,
+                "tokens": runs[0][2]["generated_tokens"]})
+            del graph, eager
+    return {"phase": "graph_check", "cases": cases}
 
 
 SERVE_LENS = (64, 64, 128, 128, 192, 256, 256, 320, 384, 384, 448, 512)
@@ -401,7 +505,12 @@ def drive_serve(model, params, engine_cfg, make_requests, kernels) -> tuple:
     comps = engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    # the wrappers count eager launches (prefill); a graph replay
+    # launches what its capture counted
+    eager = {name: fn.launches for name, fn in kernels.items()}
+    replayed = engine.block_stats.kernel_launches()
+    launches = {name: eager[name] + replayed.get(fn.__name__, 0)
+                for name, fn in kernels.items()}
 
     for c in comps:
         if c.finish_reason not in ("stop", "length"):
@@ -444,8 +553,23 @@ def drive_serve(model, params, engine_cfg, make_requests, kernels) -> tuple:
         "ms_per_decode_tick": st.decode_time_s * 1e3 / ticks,
         "prefill_batches": st.prefill_batches,
         "admit_ticks": st.admit_ticks,
+        **graph_numbers(engine),
+        "eager_launches": eager, "replay_launches": replayed,
     }
     return common, engine, launches
+
+
+def graph_numbers(engine) -> dict:
+    """What the engine's decode graphs did: graphs captured, seconds to
+    capture them, replays, ticks run with some lane live and fully
+    masked ticks, the launches each graph holds."""
+    bs = engine.block_stats
+    return {"graphs_captured": bs.graphs,
+            "capture_s": bs.capture_s, "replays": bs.replays,
+            "replays_by_variant": dict(bs.blocks),
+            "ticks_run": bs.ticks_run,
+            "masked_ticks": bs.masked_ticks(engine.config.decode_block),
+            "captured_launches": bs.captured_launches}
 
 
 def serve(model, params, engine_cfg) -> dict:
@@ -453,6 +577,18 @@ def serve(model, params, engine_cfg) -> dict:
         model, params, engine_cfg, serve_requests,
         {"flash_attention": flash_attention,
          "paged_attention": paged_attention})
+    per_replay = model.cfg.n_layers * engine_cfg.decode_block
+    held = engine.block_stats.captured_launches
+    if common["graphs_captured"] != 2 or any(
+            h != {"paged_attention": per_replay} for h in held.values()) \
+            or common["eager_launches"]["paged_attention"] != 0 \
+            or launches["paged_attention"] != \
+            per_replay * common["replays"]:
+        raise RuntimeError(
+            f"paged_attention: {launches['paged_attention']} launches "
+            f"({common['eager_launches']['paged_attention']} eager) over "
+            f"{common['replays']} replays of graphs holding {held}; want "
+            f"{per_replay} a replay and none eager")
     return {
         "phase": "serve", **common,
         "peak_pages_in_use": engine.pool.peak_pages_in_use,
@@ -475,12 +611,27 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def _busy_ms(spans) -> float:
+    """Milliseconds covered by the union of (start, end) microsecond
+    intervals."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def profile_decode(model, params, engine_cfg, requests=None,
                    phase="profile") -> dict:
-    """Decode ticks alone under ``torch.profiler``: 8 requests fill the 8
+    """Decode blocks alone under ``torch.profiler``: 8 requests fill the 8
     slots, the first step (admission and one block) runs unprofiled, and
-    every later step is pure decode.  Device time is summed over the
-    device-side events (kernels, copies) only, per kernel class."""
+    every later step is pure decode, one graph replay each.  Device time
+    is summed over the device-side events (kernels, copies) only, per
+    kernel class; CUDA events around each step give its span on the
+    device (host gaps inside the step included) as a second reading
+    should the profiler see no kernel inside a replay.  The host's
+    launch calls per block are counted by runtime API name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine = ServeEngine(model, params, engine_cfg, device="cuda")
@@ -489,27 +640,57 @@ def profile_decode(model, params, engine_cfg, requests=None,
         engine.submit(r)
     engine.step()
     ticks0 = engine.stats.slot_ticks_total
+    blocks0 = engine.block_stats.replays
     torch.cuda.synchronize()
+    events = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         while engine.has_work:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             engine.step()
+            end.record()
+            events.append((start, end))
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     ticks = (engine.stats.slot_ticks_total - ticks0) // engine_cfg.slots
+    blocks = engine.block_stats.replays - blocks0
     ms: dict[str, float] = {}
     count: dict[str, int] = {}
+    host_calls: dict[str, int] = {}
+    spans = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            if ev.name.startswith("cuda") and any(
+                    k in ev.name for k in ("Launch", "Memcpy", "Memset")):
+                host_calls[ev.name] = host_calls.get(ev.name, 0) + 1
             continue
         cls = _kernel_class(ev.name)
         ms[cls] = ms.get(cls, 0.0) + ev.time_range.elapsed_us() / 1e3
         count[cls] = count.get(cls, 0) + 1
+        spans.append((ev.time_range.start, ev.time_range.end))
+    if not count:
+        raise RuntimeError(f"{phase}: the profiler saw no device event")
+    event_ms = sum(a.elapsed_time(b) for a, b in events)
     return {
         "phase": phase, "window": "decode only", "ticks": ticks,
+        "blocks": blocks,
+        "masked_ticks": blocks * engine_cfg.decode_block - ticks,
         "device_ms_per_tick": sum(ms.values()) / ticks,
         "device_ms_per_tick_by_class": {k: v / ticks for k, v in ms.items()},
         "launches_per_tick_by_class": {k: v / ticks
                                        for k, v in count.items()},
+        # a tick replays dozens of kernels; copies alone would be ~3 a block
+        "profiler_sees_replayed_kernels": sum(
+            v for k, v in count.items() if k != "memcpy/memset")
+        >= blocks * engine_cfg.decode_block,
+        "event_ms_per_tick": event_ms / ticks,
+        "wall_ms_per_tick_profiled": wall_ms / ticks,
+        "busy_share": _busy_ms(spans) / wall_ms,
+        "host_calls_per_block": {k: v / blocks
+                                 for k, v in host_calls.items()},
     }
 
 
@@ -797,10 +978,12 @@ def train_reference() -> dict:
         for x, y in zip(tree_leaves(cpu.state.params),
                         tree_leaves(card.state.params), strict=True):
             x.copy_(y.cpu())
+        serve = serve_reference(card, cpu)
         _reset_train_counts()
         card.fit(10)
         counts = _train_counts()
         cpu.fit(10)
+        serve.update(serve_after_fit(card))
         if counts["fused_adamw"] != 11 * 10 or (
                 algo == "dreamddp-int8") != (counts["quantize_rows"] > 0):
             raise RuntimeError(f"train_reference {algo}: launches {counts}")
@@ -827,10 +1010,53 @@ def train_reference() -> dict:
                      "max_loss_rel_err": loss_err,
                      "max_param_abs_err": worst,
                      "max_share_beyond_bulk_atol": share,
-                     "launches": counts, "tolerance": tol}
+                     "launches": counts, "tolerance": tol,
+                     "serve": serve}
         del card, cpu
         _free()
     return out
+
+
+def _serve_tokens(sess: Session) -> np.ndarray:
+    return np.random.default_rng(9).integers(0, sess.model.cfg.vocab,
+                                             (2, 8))
+
+
+def serve_reference(card: Session, cpu: Session) -> dict:
+    """Before the fit both sessions hold the same parameters:
+    ``serve().generate(tokens, 4)`` (greedy; graph replays on the card)
+    must give the same tokens on both."""
+    tokens = _serve_tokens(card)
+    engine = card.serve()
+    got = engine.generate(tokens, 4)
+    want = cpu.serve().generate(tokens, 4)
+    if got.shape != (2, 4) or not torch.equal(got.cpu(), want):
+        raise RuntimeError(f"Session.serve card {got.tolist()} != cpu "
+                           f"{want.tolist()}")
+    return {"tokens_before_fit": got.tolist(),
+            "graphs_captured": engine.block_stats.graphs}
+
+
+def serve_after_fit(card: Session) -> dict:
+    """After the fit the parameters of the two sessions differ within the
+    training tolerances, so greedy tokens may too: the card session's
+    ``serve()`` (the same engine, its params copied in place, no new
+    capture) is held to a CPU engine over a copy of the card session's
+    own worker-0 parameters."""
+    engine = card.serve()
+    stats = engine.compile_stats()
+    tokens = _serve_tokens(card)
+    got = engine.generate(tokens, 4)
+    if card.serve() is not engine or engine.compile_stats() != stats \
+            or engine.block_stats.graphs != 2:
+        raise RuntimeError("Session.serve() rebuilt its engine after fit")
+    cpu_params = _to(worker_unstack(card.state.params, 0), "cpu")
+    want = ServeEngine(card.model, cpu_params, EngineConfig(),
+                       device="cpu").generate(tokens, 4)
+    if not torch.equal(got.cpu(), want):
+        raise RuntimeError(f"Session.serve after fit: card {got.tolist()} "
+                           f"!= cpu {want.tolist()}")
+    return {"tokens_after_fit": got.tolist(), "compile_stats": stats}
 
 
 def train_flops_per_step(model: DecoderLM) -> float:
@@ -955,12 +1181,7 @@ def train_profile(sess, unprofiled_ms: float) -> dict:
         ms[cls] = ms.get(cls, 0.0) + ev.time_range.elapsed_us() / 1e3
         count[cls] = count.get(cls, 0) + 1
         spans.append((ev.time_range.start, ev.time_range.end))
-    spans.sort()
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _busy_ms(spans)
     ranges = {}
     for ev in prof.key_averages():
         if ev.key in ("repro_torch.optimizer", "repro_torch.sync"):
@@ -980,7 +1201,7 @@ def train_profile(sess, unprofiled_ms: float) -> dict:
         "launches_per_step_by_class": {k: v / TRAIN_H
                                        for k, v in count.items()},
         "device_ms_per_step_by_range": ranges,
-        "busy_share": busy / 1e3 / (wall * 1e3),
+        "busy_share": busy / (wall * 1e3),
         "unprofiled_ms_per_step": unprofiled_ms,
         "device_ms_over_unprofiled_step": device_ms / unprofiled_ms,
     }
@@ -1187,6 +1408,8 @@ def mamba2_serve(model, params) -> dict:
     common, engine, launches = drive_serve(
         model, params, MAMBA_ENGINE, mamba_requests,
         {"ssd_chunk_fwd": ssd_chunk_grouped})
+    if common["replay_launches"] or common["graphs_captured"] != 2:
+        raise RuntimeError(f"mamba2 decode graphs: {common}")
     if launches["ssd_chunk_fwd"] != cfg.n_layers * common["prefill_batches"]:
         raise RuntimeError(f"ssd_chunk_fwd launched {launches} for "
                            f"{common['prefill_batches']} prefill calls of "
@@ -1279,6 +1502,8 @@ def main() -> int:
                   "launch and event overhead inside every kernel time"})
     kernels = [check_kernel(k) for k in KERNELS]
     emit(reference_check())
+    emit(graph_check())
+    _free()
     model = DecoderLM(granite_3_2b.CONFIG)      # full width and depth
     params = model.init(torch.Generator("cuda").manual_seed(0))
     if count_params(params) != model.param_count():

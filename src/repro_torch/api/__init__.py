@@ -1,13 +1,15 @@
-"""Public API of the port's training side: the :class:`Session` facade and
-the :class:`SyncStrategy` registry (``repro.api`` counterpart)."""
+"""Public API of the port: the :class:`Session` facade (training and
+``serve()``), the :class:`SyncStrategy` registry and the deprecated
+:class:`InferenceSession` shim (``repro.api`` counterpart)."""
 
 from ..core.sync_policies import (Int8EFSync, MeanSync, OuterOptSync,
                                   SyncPolicy)
 from .registry import (available_strategies, get_strategy,
                        register_strategy, unregister_strategy)
-from .session import JobConfig, Session
+from .session import InferenceSession, JobConfig, Session
 from .strategies import SyncStrategy
 
-__all__ = ["JobConfig", "Session", "SyncStrategy", "SyncPolicy", "MeanSync",
-           "Int8EFSync", "OuterOptSync", "available_strategies",
-           "get_strategy", "register_strategy", "unregister_strategy"]
+__all__ = ["JobConfig", "Session", "InferenceSession", "SyncStrategy",
+           "SyncPolicy", "MeanSync", "Int8EFSync", "OuterOptSync",
+           "available_strategies", "get_strategy", "register_strategy",
+           "unregister_strategy"]

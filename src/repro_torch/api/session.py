@@ -10,16 +10,18 @@ Counterpart of ``repro.api.session`` in sync mode::
     sess.replan(bandwidth=1e8)         # link drifted: re-solve + hot-swap
     sess.fit(100)                      # continue on the new schedule
 
+    engine = sess.serve()              # a ServeEngine over worker 0
+    engine.generate(tokens, 16)
+
 Everything is lazy: ``.plan`` / ``.profile()`` work without ever building
 training state, and ``.fit`` builds the runner on first call.  Training
-runs on the GPU unless the session is made with ``device="cpu"``.
+and serving run on the GPU unless the session is made with
+``device="cpu"``.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
 item: the async two-tier runtime (``async_mode`` or an ``async_runtime``
 strategy such as ``hier-async``; queue A item 10), :meth:`Session.simulate`
-(SimNet, the same item), :meth:`Session.serve` (use
-:class:`repro_torch.serve.ServeEngine` directly; queue A item 8) and
-checkpoints (``ckpt_dir``; queue A item 6).
+(SimNet, the same item) and checkpoints (``ckpt_dir``; queue A item 6).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Any
 
 import torch
 
+from ..core.partial_sync import worker_unstack
 from ..core.plans import SyncPlan
 from ..core.profiler import HardwareSpec, LayerProfile, analytic_profile
 from ..data import MarkovCorpus
@@ -39,9 +42,11 @@ from ..optim import make_optimizer
 from ..runtime import (Runner, RunnerConfig, StepConfig, TrainState,
                        init_train_state)
 from ..runtime.runner import reshard_train_state
+from ..serve import EngineConfig, ServeEngine
+from ..tree import tree_map
 from .registry import get_strategy
 
-__all__ = ["JobConfig", "Session"]
+__all__ = ["JobConfig", "Session", "InferenceSession"]
 
 _ASYNC_TODO = ("the async two-tier runtime is not ported to repro_torch "
                "yet (ROADMAP.md queue A item 10)")
@@ -123,6 +128,7 @@ class Session:
         self._runner: Runner | None = None
         self._state: TrainState | None = None
         self._step = 0
+        self._engines: dict[tuple[EngineConfig, int], ServeEngine] = {}
 
     # ------------------------------------------------------------ lazy parts
     @property
@@ -312,6 +318,43 @@ class Session:
             self._runner.replan(self._plan)
         return self._plan
 
+    # ------------------------------------------------------------- serving
+    def serve(self, *, worker: int = 0,
+              config: EngineConfig | None = None) -> ServeEngine:
+        """The inference path: a continuous-batching :class:`ServeEngine`
+        over one replica, on the session's device.
+
+        Engines are memoized per ``(config, worker)``: a repeated
+        ``serve()`` after more ``fit()`` reuses the engine (its pool and
+        captured decode graphs) and copies the replica's current values
+        into its parameters.  The engine holds its own copy of them, so
+        a later ``fit()`` (which updates the training state in place)
+        does not reach it until ``serve()`` is called again.  An engine
+        with requests queued or in flight is not reset: ``drain()`` it
+        first.
+        """
+        cfg = config or EngineConfig()
+        key = (cfg, worker)
+        if self._state is not None:
+            params = worker_unstack(self._state.params, worker)
+        else:       # the initial parameters, the ones fit() starts from
+            params = self.model.init(
+                torch.Generator(self.device).manual_seed(self.cfg.seed))
+        engine = self._engines.get(key)
+        if engine is None:
+            engine = ServeEngine(
+                self.model, tree_map(lambda x: x.detach().clone(), params),
+                cfg, device=self.device)
+            self._engines[key] = engine
+        else:
+            if engine.has_work:
+                raise RuntimeError(
+                    "serve() would reset an engine with queued/in-flight "
+                    "requests; drain() the previous handle first (or "
+                    "serve() with a different EngineConfig)")
+            engine.reset(params=params)
+        return engine
+
     # --------------------------------------------------- not ported yet
     def simulate(self, *args, **kwargs):
         """SimNet replay of the schedule: not ported yet."""
@@ -319,9 +362,43 @@ class Session:
             "Session.simulate (SimNet) is not ported to repro_torch yet "
             "(ROADMAP.md queue A item 10)")
 
-    def serve(self, *args, **kwargs):
-        """The reference's serving handle: not ported yet."""
-        raise NotImplementedError(
-            "Session.serve() is not ported to repro_torch yet (ROADMAP.md "
-            "queue A item 8): build a repro_torch.serve.ServeEngine over "
-            "repro_torch.core.partial_sync.worker_unstack(state.params)")
+
+class InferenceSession:
+    """Deprecated shim over :class:`~repro_torch.serve.ServeEngine`.
+
+    Keeps the old ``generate(tokens, max_new_tokens)`` call alive by
+    delegating to an engine's array form (greedy, no EOS exit: the old
+    loop's tokens).  New code should use ``Session.serve()``, which
+    returns the engine.  The engine reads ``params`` in place.
+    """
+
+    def __init__(self, model, params, *, config: EngineConfig | None = None,
+                 device: str | torch.device | None = None):
+        warnings.warn(
+            "InferenceSession is deprecated: Session.serve() returns a "
+            "repro_torch.serve.ServeEngine (continuous batching, EOS exit, "
+            "sampling, stats) — use it directly",
+            DeprecationWarning, stacklevel=2)
+        self.model = model
+        self.params = params
+        self.device = resolve_device(device)
+        self._config = config
+        self.engine: ServeEngine | None = None
+
+    def generate(self, tokens, max_new_tokens: int = 16) -> torch.Tensor:
+        """Prefill ``tokens`` ``[B, S]`` then decode greedily: ``[B,
+        max_new_tokens]`` int32."""
+        need = tokens.shape[1] + max(max_new_tokens, 0)
+        # the old loop sized its cache per call; grow max_seq to match so
+        # any request the old loop handled still works
+        if self.engine is None or need > self.engine.config.max_seq:
+            base = self._config or EngineConfig()
+            max_seq = max(base.max_seq, need)
+            if base.kv_backend == "paged":    # pages divide the lane
+                max_seq += (-max_seq) % base.page_size
+            self.engine = ServeEngine(
+                self.model, self.params,
+                dataclasses.replace(base, max_seq=max_seq),
+                device=self.device)
+        self.engine.reset(params=self.params)
+        return self.engine.generate(tokens, max_new_tokens)

@@ -14,7 +14,10 @@ chosen on the host from the shapes and the SM count alone
 (:func:`split_pages`); the wrapper never reads ``kv_len``, so a decode
 step makes no host sync here.  The partials' scratch and the arrival
 counters (which every launch leaves at zero) are kept per device and
-stream.
+stream, and grown by replacement when a larger launch comes along.  A
+caller whose launches must keep their addresses, such as a captured CUDA
+graph, makes its own with :func:`launch_scratch` and passes it to every
+launch (``scratch=``), so nothing reallocates it underneath the graph.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from .. import _build
 from ..flash_attention.ops import HEAD_DIMS
 from .ref import paged_attention_ref
 
-__all__ = ["paged_attention", "split_pages", "launch_plan"]
+__all__ = ["paged_attention", "split_pages", "launch_plan", "launch_scratch"]
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict[torch.dtype, ctypes._CFuncPtr] = {}
@@ -65,6 +68,34 @@ def split_pages(slots: int, n_kv: int, max_blocks: int,
     return -(-max_blocks // pps), pps
 
 
+def _scratch_sizes(slots: int, n_q: int, n_kv: int, hd: int,
+                   splits: int) -> tuple[int, int, int]:
+    """Elements of (partial acc, partial (m, l), counters) a launch of
+    ``splits`` splits needs."""
+    return slots * n_q * splits * hd, slots * n_q * splits * 2, slots * n_kv
+
+
+def _new_scratch(device, n_acc: int, n_ml: int, n_cnt: int
+                 ) -> tuple[torch.Tensor, ...]:
+    return (torch.empty(n_acc, device=device),
+            torch.empty(n_ml, device=device),
+            torch.zeros(n_cnt, device=device, dtype=torch.int32))
+
+
+def launch_scratch(slots: int, n_q: int, n_kv: int, hd: int,
+                   max_blocks: int, device: torch.device
+                   ) -> tuple[torch.Tensor, ...] | None:
+    """Scratch of the caller's own for launches of these shapes on
+    ``device`` (``None`` when one split covers the pages and the launch
+    needs none).  Launches that share it must run in order on one stream:
+    they share the arrival counters."""
+    splits, _ = split_pages(slots, n_kv, max_blocks, sm_count(device))
+    if splits == 1:
+        return None
+    return _new_scratch(device, *_scratch_sizes(slots, n_q, n_kv, hd,
+                                                splits))
+
+
 def _scratch_for(device: torch.device, stream: int, n_acc: int, n_ml: int,
                  n_cnt: int) -> tuple[torch.Tensor, ...]:
     """Scratch for the split partials and the arrival counters, grown on
@@ -78,9 +109,7 @@ def _scratch_for(device: torch.device, stream: int, n_acc: int, n_ml: int,
     if have is not None:
         n_acc, n_ml, n_cnt = (max(n, t.numel())
                               for n, t in zip((n_acc, n_ml, n_cnt), have))
-    have = (torch.empty(n_acc, device=device),
-            torch.empty(n_ml, device=device),
-            torch.zeros(n_cnt, device=device, dtype=torch.int32))
+    have = _new_scratch(device, n_acc, n_ml, n_cnt)
     _scratch[key] = have
     return have
 
@@ -134,15 +163,18 @@ def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     kv_len: torch.Tensor, *, window: int | None = None,
-                    scale: float | None = None,
-                    impl: str | None = None) -> torch.Tensor:
+                    scale: float | None = None, impl: str | None = None,
+                    scratch: tuple[torch.Tensor, ...] | None = None
+                    ) -> torch.Tensor:
     """Single-token decode attention through per-slot block tables.
 
     q ``[slots, n_q, hd]``; k/v pages ``[n_pages, page_size, n_kv, hd]``;
     ``block_tables [slots, max_blocks]`` int32 page ids; ``kv_len
     [slots]`` int32 — positions ``< kv_len[b]`` are attended (the query
     sits at ``kv_len[b] - 1``; ``window`` keeps the last ``window`` of
-    them).  Returns ``[slots, n_q, hd]`` in q's dtype.
+    them).  Returns ``[slots, n_q, hd]`` in q's dtype.  ``scratch``, from
+    :func:`launch_scratch` for these shapes, replaces the per-stream
+    scratch (the plain version needs none).
     """
     if impl is None:
         impl = "cuda" if q.is_cuda else "ref"
@@ -161,9 +193,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part_acc = part_ml = counters = None
     if splits > 1:
-        part_acc, part_ml, counters = _scratch_for(
-            q.device, stream, slots * n_q * splits * hd,
-            slots * n_q * splits * 2, slots * n_kv)
+        sizes = _scratch_sizes(slots, n_q, n_kv, hd, splits)
+        if scratch is None:
+            scratch = _scratch_for(q.device, stream, *sizes)
+        elif any(t.device != q.device or t.numel() < n
+                 for t, n in zip(scratch, sizes, strict=True)):
+            raise ValueError(f"scratch does not hold a launch of {splits} "
+                             f"splits on {q.device}: make it with "
+                             "launch_scratch for these shapes")
+        part_acc, part_ml, counters = scratch
     with torch.cuda.device(q.device):       # the attribute and the launch
         err = _fn(q.dtype)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

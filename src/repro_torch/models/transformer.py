@@ -306,15 +306,18 @@ class DecoderLM:
             for name in ("k", "v")}}
 
     def decode_step_paged(self, params, pages, token, pos, block_tables,
-                          active) -> tuple[torch.Tensor, Tree]:
+                          active, *, attn_scratch=None
+                          ) -> tuple[torch.Tensor, Tree]:
         """Slot-batched one-token decode against the page pool.
 
         ``token [slots, 1]``, ``pos [slots]`` int32 write index,
         ``block_tables [slots, max_blocks]`` int32, ``active [slots]``
         bool (inactive lanes write the trash page).  Each layer writes
         this token's KV into its page (in place), then attends through
-        the block table with the paged kernel.  Returns (logits
-        ``[slots, 1, vocab]``, pages).
+        the block table with the paged kernel (``attn_scratch``: the
+        caller's own split-K scratch, see
+        :func:`~repro_torch.kernels.paged_attention.ops.launch_scratch`).
+        Returns (logits ``[slots, 1, vocab]``, pages).
         """
         cfg = self.cfg
         x = embed(params["embed"], token)
@@ -328,7 +331,8 @@ class DecoderLM:
             write_token_to_pages(pk[i], block_tables, pos, active, k[:, 0])
             write_token_to_pages(pv[i], block_tables, pos, active, v[:, 0])
             out = paged_attention(q[:, 0], pk[i], pv[i], block_tables,
-                                  kv_len, window=cfg.window)
+                                  kv_len, window=cfg.window,
+                                  scratch=attn_scratch)
             return out.reshape(b, 1, -1) @ p["wo"]["w"]
 
         x = self._blocks(params, x, attend)

@@ -246,11 +246,14 @@ def slot_decode(model, params, arena: Tree, tokens: torch.Tensor,
 
 def slot_decode_paged(model, params, pages: Tree, tokens: torch.Tensor,
                       pos: torch.Tensor, block_tables: torch.Tensor,
-                      active: torch.Tensor) -> torch.Tensor:
+                      active: torch.Tensor, *, attn_scratch=None
+                      ) -> torch.Tensor:
     """One decode tick against the paged pool: ``block_tables [S,
     max_blocks]`` route the KV traffic and ``active [S]`` parks inactive
-    lanes' writes on the trash page.  -> logits ``[S, V]``; the pool is
-    updated in place."""
+    lanes' writes on the trash page (``attn_scratch``: the paged
+    kernel's split-K scratch of the caller's own).  -> logits ``[S,
+    V]``; the pool is updated in place."""
     logits, _ = model.decode_step_paged(params, pages, tokens[:, None], pos,
-                                        block_tables, active)
+                                        block_tables, active,
+                                        attn_scratch=attn_scratch)
     return logits[:, 0]

@@ -139,8 +139,8 @@ class PagedCachePool(CachePool):
     Device state: ``arena``, the model's page pool (leaves ``[layers,
     n_pages, page_size, ...]``, page 0 the trash page), allocated once.
     Host state: ``block_tables`` (``[n_slots, max_blocks]`` numpy int32,
-    shipped to the device each decode block), the page free list and
-    per-slot page commitments.  Admission reserves the worst-case
+    copied into the engine's device table before each decode block),
+    the page free list and per-slot page commitments.  Admission reserves the worst-case
     ``ceil(need / page_size)`` pages up front, so ``extend`` never fails
     mid-flight; pages are handed out lazily as the decode frontier
     crosses block boundaries, so ``peak_pages_in_use`` tracks traffic.
@@ -258,10 +258,6 @@ class PagedCachePool(CachePool):
         """``[K, max_blocks]`` int32 device rows for one admission group."""
         rows = self.block_tables[np.asarray(slots, np.int64)]
         return torch.tensor(rows, device=self.device)
-
-    def device_block_tables(self) -> torch.Tensor:
-        """A copy on the device (the host table keeps changing)."""
-        return torch.tensor(self.block_tables, device=self.device)
 
     def page_bytes(self) -> int:
         """Device bytes of ONE page across every layer and leaf."""

@@ -309,8 +309,8 @@ def test_what_is_not_ported_raises():
         sess.fit(3)
     with pytest.raises(NotImplementedError):
         sess.simulate("churn")
-    with pytest.raises(NotImplementedError):
-        sess.serve()
+    from repro_torch.serve import ServeEngine
+    assert isinstance(sess.serve(), ServeEngine)
     with pytest.raises(NotImplementedError, match="item 6"):
         sess.runner.restore_elastic(sess.state, 2, sess.plan)
     assert Session(JobConfig(algo="hier-2tier"), model=model,
