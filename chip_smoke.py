@@ -61,19 +61,33 @@ code is non-zero):
    ``Session.serve().generate(tokens, 4)`` (greedy, graphed on the card)
    equal on both before the fit, and after it equal to a CPU engine on
    the card session's own parameters; the second ``serve()`` returns
-   the same engine and captures nothing.
+   the same engine and captures nothing.  The same job with
+   ``period_exec="compiled"`` (the first period eager, then one CUDA
+   graph replay a period): final state **bitwise** the card's pipeline
+   run, losses equal (so within ``TRAIN_REF_TOL`` of the CPU run), fused
+   AdamW 11 launches a step with replays reckoned in; and a compiled run
+   with a checkpoint every period and a failure injected inside the
+   second, restored in place, **bitwise** the uninterrupted one.
 9. ``train``   — granite-3-2b at published widths, depth cut 40 -> 8 and
    workers 8 -> 4 (the worker-stacked state has to fit one card),
    bfloat16, ``Session(JobConfig(workers=4, period=5,
    batch_per_worker=4, seq=512, smoke=False))`` for 10 steps with
-   ``dreamddp``, then 10 with ``dreamddp-int8`` in a fresh session.
-   Launch counters are set to 0 just before each ``fit`` and read just
-   after: fused AdamW must run 11 x steps, the int8 kernels in the int8
-   run.  Reports ms/step (the second period's time / H), tokens/s,
-   MFU, peak memory, first and last loss (finite, falling).
-10. ``train_profile`` — one more period of the int8 session under
-   ``torch.profiler``: device ms per step by kernel class and the
-   device's busy share of the wall time.
+   ``dreamddp`` then ``dreamddp-int8``, each with ``period_exec``
+   ``pipeline`` then ``compiled``, every run a fresh session.  Launch
+   counters are set to 0 just before each ``fit`` and read just after;
+   a compiled run's launches are the wrappers' counts less what they
+   counted while capturing, plus replays x what the graph holds: fused
+   AdamW must run 11 x steps, the int8 kernels in the int8 runs
+   (``quantize_rows`` shape by shape as ``int8_plan`` reckons).  Reports
+   ms/step (the second period's time / H: a replay when compiled),
+   tokens/s, MFU, peak and reserved memory, the graph's capture seconds,
+   replays, launches per replay and pool bytes, each period's wall time
+   beside the span between CUDA events around it, and first and last
+   loss (finite, falling).
+10. ``train_profile`` — one more period of each int8 session (pipeline,
+   then compiled: one replay) under ``torch.profiler``: device ms per
+   step by kernel class, the device's kernels and copies per period and
+   its busy share of the wall time.
 11. ``kernel`` (SSD) — the SSD chunk kernel against its plain version,
    first as the Mamba-2 serve phase calls it (``ssd_chunk_grouped`` on
    the model's layout: B 2, Lp 512, 48 heads, 1 group, cs 128, p 64, n
@@ -728,10 +742,10 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def train_job(algo: str) -> JobConfig:
+def train_job(algo: str, period_exec: str = "pipeline") -> JobConfig:
     return JobConfig(arch="granite-3-2b", algo=algo, workers=TRAIN_WORKERS,
                      period=TRAIN_H, batch_per_worker=TRAIN_B, seq=TRAIN_S,
-                     smoke=False)
+                     smoke=False, period_exec=period_exec)
 
 
 def int8_plan() -> tuple[int, str, dict]:
@@ -935,16 +949,25 @@ def check_int8(k: int, where: str) -> list[dict]:
                                ("dequantize_rows", 63))]
 
 
+def check_int8_shapes(reckoned: dict, measured: list[dict], what: str
+                      ) -> None:
+    """Holds a run's ``quantize_rows`` launches by shape (``measured``,
+    as the wrapper counted them, graph replays reckoned in) to
+    ``int8_plan``'s reckoning."""
+    counted = {tuple(e["shape"]): e["launches"] for e in measured}
+    if counted != reckoned:
+        raise RuntimeError(f"quantize_rows launched {counted} by shape in "
+                           f"the {what}; the plan reckons {reckoned}")
+
+
 def int8_launches(kernels: list[dict], reckoned: dict,
                   measured: list[dict]) -> None:
     """Puts the int8 run's ``quantize_rows`` launches by shape, as the
     wrapper counted them (``measured``), on its kernels-line entry and on
     each of its check rows, after holding them, shape by shape, to
     ``int8_plan``'s reckoning."""
+    check_int8_shapes(reckoned, measured, "int8 run")
     counted = {tuple(e["shape"]): e["launches"] for e in measured}
-    if counted != reckoned:
-        raise RuntimeError(f"quantize_rows launched {counted} by shape in "
-                           f"the int8 run; the plan reckons {reckoned}")
     for k in kernels:
         if k["name"] == "quantize_rows":
             k["launches_by_shape"] = measured
@@ -966,6 +989,28 @@ def _train_counts() -> dict:
             "dequantize_rows": dequantize_rows.launches}
 
 
+def run_launches(runner) -> tuple[dict, list[dict]]:
+    """The kernel launches a run made since ``_reset_train_counts``, by
+    wrapper and (``quantize_rows``) by shape: the wrappers' counts, less
+    what they counted while a period was captured (recorded, not run),
+    plus graph replays x what each graph holds.  Each graph is captured
+    once in a run here."""
+    stats = runner.graph_stats
+    if stats.graphs != len(stats.captured_launches):
+        raise RuntimeError(f"{stats.graphs} captures for "
+                           f"{len(stats.captured_launches)} make-up keys")
+    counts = collections.Counter(_train_counts())
+    shapes = collections.Counter(quantize_rows.launches_by_shape)
+    for key, held in stats.captured_launches.items():
+        n = stats.replays[key]
+        for name, k in held.items():
+            counts[name] += (n - 1) * k
+        for shape, k in stats.captured_by_shape[key].items():
+            shapes[shape] += (n - 1) * k
+    return dict(counts), [{"shape": list(shape), "launches": n}
+                          for shape, n in shapes.most_common() if n]
+
+
 def train_reference() -> dict:
     """SMOKE (float32), W=2, H=5: 10 steps of Session.fit on the card
     (through the kernels) against the same on the CPU (plain versions),
@@ -979,6 +1024,7 @@ def train_reference() -> dict:
                         tree_leaves(card.state.params), strict=True):
             x.copy_(y.cpu())
         serve = serve_reference(card, cpu)
+        init = [x.clone() for x in tree_leaves(card.state.params)]
         _reset_train_counts()
         card.fit(10)
         counts = _train_counts()
@@ -1011,10 +1057,78 @@ def train_reference() -> dict:
                      "max_param_abs_err": worst,
                      "max_share_beyond_bulk_atol": share,
                      "launches": counts, "tolerance": tol,
-                     "serve": serve}
+                     "serve": serve,
+                     "compiled": compiled_reference(job, card, init)}
         del card, cpu
         _free()
     return out
+
+
+def _state_leaves(state) -> list[torch.Tensor]:
+    return [x for x in tree_leaves(state._asdict()) if x is not None]
+
+
+def _bitwise(a, b, what: str) -> None:
+    for x, y in zip(_state_leaves(a), _state_leaves(b), strict=True):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"{what}: the states differ by up to "
+                               f"{(x.float() - y.float()).abs().max().item()}")
+
+
+def compiled_reference(job: JobConfig, card: Session, init: list) -> dict:
+    """The train_reference job with ``period_exec="compiled"`` on the card
+    from the same initial parameters: its final state **bitwise** the
+    pipeline run's (``card``, already held to the CPU run), its losses
+    equal; the first period eager, one capture, the second a replay;
+    fused AdamW 11 launches a step, replays reckoned in.  Then a compiled
+    run with a checkpoint every period and a failure injected at step 7,
+    inside the second period: restored in place (the graph kept), it must
+    end bitwise where the uninterrupted compiled run ends."""
+    def session(**kw):
+        sess = Session(job.replace(period_exec="compiled", **kw),
+                       device="cuda")
+        for x, y in zip(tree_leaves(sess.state.params), init, strict=True):
+            x.copy_(y)
+        return sess
+
+    comp = session()
+    _reset_train_counts()
+    comp.fit(10)
+    launches, _ = run_launches(comp.runner)
+    stats = comp.runner.graph_stats
+    _bitwise(card.state, comp.state, f"compiled {job.algo} against pipeline")
+    if [h["loss"] for h in comp.history] != [h["loss"] for h in
+                                             card.history]:
+        raise RuntimeError(f"compiled {job.algo}: losses differ from the "
+                           "pipeline's")
+    if stats.graphs != 1 or stats.replays[()] != 1 \
+            or launches["fused_adamw"] != 11 * 10:
+        raise RuntimeError(f"compiled {job.algo}: {stats.graphs} graphs, "
+                           f"{stats.replays} replays, launches {launches}")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        again = session(ckpt_dir=str(ckpt_dir), ckpt_every=5)
+        runner = again.runner
+        state = runner.run(again.state, 10, fused=True, inject_failure_at=7)
+        _bitwise(comp.state, state, f"compiled {job.algo} restart")
+        if runner.retries != 1 or runner.graph_stats.graphs != 1 \
+                or runner.ckpt.latest_step() != 10:
+            raise RuntimeError(f"restart {job.algo}: retries "
+                               f"{runner.retries}, graphs "
+                               f"{runner.graph_stats.graphs}")
+        restart = {"retries": runner.retries,
+                   "graphs": runner.graph_stats.graphs,
+                   "replays": runner.graph_stats.replays[()],
+                   "history_steps": [h["step"] for h in runner.history],
+                   "bitwise_equal_to_uninterrupted": True}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"bitwise_equal_to_pipeline": True, "losses_equal": True,
+            "graphs": stats.graphs, "replays": stats.replays[()],
+            "capture_s": stats.capture_s, "pool_bytes": stats.pool_bytes,
+            "launches_per_replay": stats.captured_launches[()],
+            "launches": launches, "restart": restart}
 
 
 def _serve_tokens(sess: Session) -> np.ndarray:
@@ -1071,12 +1185,16 @@ def train_flops_per_step(model: DecoderLM) -> float:
     return 6.0 * model.param_count() * tokens + attn
 
 
-def train(algo: str, *, keep: bool = False):
-    """One fresh full-width session, TRAIN_STEPS steps, counts around the
-    fit."""
+def train(algo: str, exec_: str, *, keep: bool = False):
+    """One fresh full-width session with ``period_exec=exec_``,
+    TRAIN_STEPS steps, counts around the fit (``compiled``: the first
+    period eager, one capture, then a replay a period; launches reckoned
+    by ``run_launches``).  Per period: its wall time and the span between
+    the runner's CUDA events around it, whose ratio bounds the device's
+    busy share from above (idle gaps inside the span count as busy)."""
     model = DecoderLM(TRAIN_MODEL)
     torch.cuda.reset_peak_memory_stats()
-    sess = Session(train_job(algo), model=model, device="cuda")
+    sess = Session(train_job(algo, exec_), model=model, device="cuda")
     plan = sess.plan
     sess.state                                       # build the state
     torch.cuda.synchronize()
@@ -1086,25 +1204,31 @@ def train(algo: str, *, keep: bool = False):
     sess.fit(TRAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _train_counts()
-    by_shape = [{"shape": list(shape), "launches": n} for shape, n in
-                quantize_rows.launches_by_shape.most_common()]
+    runner = sess.runner
+    counts, by_shape = run_launches(runner)
+    stats = runner.graph_stats
     losses = [h["loss"] for h in sess.history]
     second = [h["time"] for h in sess.history[TRAIN_H:2 * TRAIN_H]]
     ms = statistics.median(second) * 1e3
     tokens = TRAIN_WORKERS * TRAIN_B * TRAIN_S
     flops = train_flops_per_step(model)
+    periods = TRAIN_STEPS // TRAIN_H
     if counts["fused_adamw"] != 11 * TRAIN_STEPS:
-        raise RuntimeError(f"train {algo}: fused_adamw launched "
+        raise RuntimeError(f"train {algo} {exec_}: fused_adamw launched "
                            f"{counts['fused_adamw']} times, want "
                            f"{11 * TRAIN_STEPS}")
     if (algo == "dreamddp-int8") != (counts["quantize_rows"] > 0
                                      and counts["dequantize_rows"] > 0):
-        raise RuntimeError(f"train {algo}: int8 launches {counts}")
+        raise RuntimeError(f"train {algo} {exec_}: int8 launches {counts}")
+    if (stats.graphs, stats.replays[()]) != (
+            (1, periods - 1) if exec_ == "compiled" else (0, 0)):
+        raise RuntimeError(f"train {algo} {exec_}: {stats.graphs} graphs, "
+                           f"{stats.replays} replays")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise RuntimeError(f"train {algo}: losses {losses}")
+        raise RuntimeError(f"train {algo} {exec_}: losses {losses}")
     result = {
-        "phase": "train", "algo": algo, "arch": TRAIN_MODEL.name,
+        "phase": "train", "algo": algo, "period_exec": exec_,
+        "arch": TRAIN_MODEL.name,
         "layers": TRAIN_LAYERS, "d_model": TRAIN_MODEL.d_model,
         "reduced": {"n_layers": "40 -> 8", "workers": "8 -> 4"},
         "dtype": TRAIN_MODEL.param_dtype, "workers": TRAIN_WORKERS,
@@ -1115,24 +1239,37 @@ def train(algo: str, *, keep: bool = False):
                  "fingerprint": plan.fingerprint()},
         "steps": TRAIN_STEPS, "wall_s": wall,
         # the fused runner stamps every step of a period with the
-        # period's time / H, so each figure is one period's mean
+        # period's time / H, so each figure is one period's mean; the
+        # second period is a graph replay in the compiled mode
         "ms_per_step": ms, "ms_per_step_first_period":
             statistics.median(h["time"] for h in sess.history[:TRAIN_H])
             * 1e3,
         "ms_per_step_both_periods":
             statistics.fmean(h["time"] for h in sess.history) * 1e3,
+        "period_wall_ms": [t * 1e3 for t in runner.period_times],
+        "period_event_ms": [t * 1e3 for t in runner.period_event_times],
+        "event_span_share": [e / t for e, t in zip(
+            runner.period_event_times, runner.period_times, strict=True)],
         "tokens_per_s": tokens / (ms / 1e3),
         "flops_per_step": flops,
         "mfu": flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
         "state_bytes": state_bytes,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "reserved_device_bytes": torch.cuda.memory_reserved(),
+        "graphs": stats.graphs, "capture_s": stats.capture_s,
+        "replays": stats.replays[()], "pool_bytes": stats.pool_bytes,
+        "launches_per_replay": stats.captured_launches.get((), {}),
+        "quantize_rows_launches_by_shape_per_replay": [
+            {"shape": list(k), "launches": n} for k, n in
+            stats.captured_by_shape.get((), collections.Counter())
+            .most_common()],
         "first_loss": losses[0], "last_loss": losses[-1],
         "losses": losses, "launches": counts,
         "quantize_rows_launches_by_shape": by_shape,
     }
     if keep:
         return result, sess
-    del sess
+    del sess, runner
     _free()
     return result, None
 
@@ -1156,15 +1293,19 @@ def _train_class(name: str) -> str:
 
 
 def train_profile(sess, unprofiled_ms: float) -> dict:
-    """One more period of ``sess`` under torch.profiler: device ms per
-    step by kernel class; device ms in the step's optimizer and sync
-    ranges (``repro_torch.optimizer``, ``repro_torch.sync``: kernels
-    launched inside them; the forward and backward are the rest); the
-    share of the profiled wall time in which some kernel or copy ran
-    (merged intervals); and device ms over the unprofiled step time."""
+    """One more period of ``sess`` under torch.profiler (in the compiled
+    mode one graph replay, whose kernels the profiler sees): device ms
+    per step by kernel class; the device's kernels and copies in the
+    period; device ms in the step's optimizer and sync ranges
+    (``repro_torch.optimizer``, ``repro_torch.sync``: kernels launched
+    inside them, so none under a replay; the forward and backward are the
+    rest); the share of the profiled wall time in which some kernel or
+    copy ran (merged intervals); and device ms over the unprofiled step
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    replays = sess.runner.graph_stats.replays[()]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1193,8 +1334,11 @@ def train_profile(sess, unprofiled_ms: float) -> dict:
     ranges["forward and backward (the rest)"] = device_ms - sum(
         ranges.values())
     return {
-        "phase": "train_profile", "algo": sess.cfg.algo, "steps": TRAIN_H,
+        "phase": "train_profile", "algo": sess.cfg.algo,
+        "period_exec": sess.cfg.period_exec, "steps": TRAIN_H,
+        "replays_in_profile": sess.runner.graph_stats.replays[()] - replays,
         "wall_ms_per_step": wall * 1e3 / TRAIN_H,
+        "device_events_per_period": sum(count.values()),
         "device_ms_per_step": device_ms,
         "device_ms_per_step_by_class": {k: v / TRAIN_H
                                         for k, v in ms.items()},
@@ -1520,14 +1664,23 @@ def main() -> int:
     k, where, reckoned = int8_plan()
     kernels = [check_adam(), *check_int8(k, where)]
     emit(train_reference())
-    plain, _ = train("dreamddp")
-    emit(plain)
-    int8, sess = train("dreamddp-int8", keep=True)
-    emit(int8)
+    runs = {}
+    for algo in ("dreamddp", "dreamddp-int8"):
+        for exec_ in ("pipeline", "compiled"):
+            int8_run = algo == "dreamddp-int8"
+            result, sess = train(algo, exec_, keep=int8_run)
+            emit(result)
+            runs[algo, exec_] = result
+            if int8_run:
+                check_int8_shapes(reckoned,
+                                  result["quantize_rows_launches_by_shape"],
+                                  f"int8 {exec_} run")
+                emit(train_profile(sess, result["ms_per_step"]))
+                del sess
+                _free()
+    plain, int8 = runs["dreamddp", "pipeline"], runs["dreamddp-int8",
+                                                     "pipeline"]
     int8_launches(kernels, reckoned, int8["quantize_rows_launches_by_shape"])
-    emit(train_profile(sess, int8["ms_per_step"]))
-    del sess
-    _free()
     # each kernel's launches from the run of its own path: the
     # optimizer's from the default algo, the int8 kernels' from the
     # int8 run

@@ -16,12 +16,14 @@ Counterpart of ``repro.api.session`` in sync mode::
 Everything is lazy: ``.plan`` / ``.profile()`` work without ever building
 training state, and ``.fit`` builds the runner on first call.  Training
 and serving run on the GPU unless the session is made with
-``device="cpu"``.
+``device="cpu"``.  With ``ckpt_dir`` (or a ``ckpt=`` manager) the runner
+saves every ``ckpt_every`` steps and restarts from the last checkpoint
+after a failure; :meth:`Session.restore` resumes a session from one.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
 item: the async two-tier runtime (``async_mode`` or an ``async_runtime``
-strategy such as ``hier-async``; queue A item 10), :meth:`Session.simulate`
-(SimNet, the same item) and checkpoints (``ckpt_dir``; queue A item 6).
+strategy such as ``hier-async``; queue A item 10) and
+:meth:`Session.simulate` (SimNet, the same item).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Any
 
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..core.partial_sync import worker_unstack
 from ..core.plans import SyncPlan
 from ..core.profiler import HardwareSpec, LayerProfile, analytic_profile
@@ -105,18 +108,16 @@ class Session:
     ``model`` / ``data`` keyword overrides replace the pieces the config
     would otherwise build (a custom model with ``layer_costs`` /
     ``unit_layout`` / ``loss``, or another data source with
-    ``batch(step)``).  ``device`` is where training runs: the GPU by
-    default (raising without one), the CPU only when asked for.
+    ``batch(step)``; ``ckpt`` a :class:`CheckpointManager` in place of
+    one over ``cfg.ckpt_dir``).  ``device`` is where training runs: the
+    GPU by default (raising without one), the CPU only when asked for.
     """
 
     def __init__(self, cfg: JobConfig, *, model: Any = None,
-                 data: Any = None, ckpt: Any = None,
+                 data: Any = None, ckpt: CheckpointManager | None = None,
                  device: str | torch.device | None = None):
-        if ckpt is not None or cfg.ckpt_dir:
-            raise NotImplementedError(
-                "checkpoints are not ported to repro_torch yet (ROADMAP.md "
-                "queue A item 6)")
         self.cfg = cfg
+        self._ckpt = ckpt
         self.device = resolve_device(device)
         self.strategy = get_strategy(cfg.algo)
         self._model = model
@@ -204,11 +205,12 @@ class Session:
 
     # -------------------------------------------------------------- training
     def _make_data(self):
+        # batches are built on the host; the runner stages them onto the
+        # device (through pinned memory in the compiled mode)
         return MarkovCorpus(vocab=self.model.cfg.vocab,
                             seq_len=self.cfg.seq,
                             batch_per_worker=self.cfg.batch_per_worker,
-                            n_workers=self.cfg.workers, seed=self.cfg.seed,
-                            device=self.device)
+                            n_workers=self.cfg.workers, seed=self.cfg.seed)
 
     def _ensure_built(self) -> None:
         if self._runner is not None:
@@ -224,12 +226,15 @@ class Session:
         self._opt = make_optimizer(cfg.optimizer, **opt_kw)
         if self._data is None:
             self._data = self._make_data()
+        if self._ckpt is None and cfg.ckpt_dir:
+            self._ckpt = CheckpointManager(cfg.ckpt_dir)
         gen = torch.Generator(self.device).manual_seed(cfg.seed)
         self._state = init_train_state(self.model, self._opt, gen,
                                        cfg.workers, cfg=scfg)
         self._runner = Runner(self.model, self._opt, self.plan, self._data,
-                              step_cfg=scfg,
+                              ckpt=self._ckpt, step_cfg=scfg,
                               run_cfg=RunnerConfig(
+                                  ckpt_every=cfg.ckpt_every,
                                   fused_period=cfg.fused_period,
                                   period_exec=cfg.period_exec,
                                   prefetch_depth=cfg.prefetch_depth,
@@ -250,6 +255,18 @@ class Session:
                                        start_step=self._step)
         self._step += steps
         return self
+
+    def restore(self, step: int | None = None) -> int:
+        """Resume from a checkpoint of this session's manager (the latest
+        by default): the state is loaded in place and ``fit`` continues
+        from its step, which is returned."""
+        self._ensure_built()
+        if self._ckpt is None:
+            raise ValueError("restore() needs a session made with ckpt_dir "
+                             "or ckpt=")
+        self._step, _, _ = self._ckpt.restore(self._state, step=step,
+                                              in_place=True)
+        return self._step
 
     # ------------------------------------------------------------- replan
     def replan(self, *, bandwidth: float | None = None,

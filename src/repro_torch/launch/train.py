@@ -11,10 +11,12 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --algo dreamddp --workers 8 --steps 100 --period 5
 
-``--device cpu`` trains on the CPU (the default is the GPU).  Flags of
-what is not ported yet — ``--ckpt-dir``, ``--period-exec compiled``,
-``--async`` — are accepted and make ``Session`` raise, naming the
-ROADMAP item.
+``--device cpu`` trains on the CPU (the default is the GPU).
+``--period-exec compiled`` runs each period as one CUDA graph replay (the
+same period body without a graph on the CPU); ``--ckpt-dir`` saves a
+checkpoint every 200 steps there and restarts from the last one after a
+failure.  ``--async`` (not ported yet) is accepted and makes ``Session``
+raise, naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ def main(argv=None) -> int:
     ap.add_argument("--period-exec", default="pipeline",
                     choices=("pipeline", "compiled"),
                     help="fused period execution: 'pipeline' (the phase "
-                         "steps queued back to back); 'compiled' is not "
-                         "ported yet")
+                         "steps queued back to back) or 'compiled' (one "
+                         "CUDA graph replay per period)")
     ap.add_argument("--async", dest="async_mode",
                     action=argparse.BooleanOptionalAction, default=False,
                     help="asynchronous two-tier runtime (not ported yet)")

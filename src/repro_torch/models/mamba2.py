@@ -346,7 +346,8 @@ class Mamba2LM:
         for i in range(self.cfg.n_layers):
             p = _layer(params["blocks"], i)
             if remat:
-                x = checkpoint(self._block_train, p, x, use_reentrant=False)
+                x = checkpoint(self._block_train, p, x, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = self._block_train(p, x)
         return x

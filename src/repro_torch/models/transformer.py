@@ -20,7 +20,7 @@ Contiguous decode, ``apply`` and the training ``loss`` use the plain
 (it trains on jnp attention outside any Pallas kernel, ROADMAP.md C3).
 With ``remat`` each block of the training forward is recomputed in the
 backward pass (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint``).
+``jax.checkpoint``; no RNG state is saved, as the model draws none).
 
 MoE, MLA and multi-token prediction are not ported yet.
 """
@@ -177,8 +177,10 @@ class DecoderLM:
         for i in range(self.cfg.n_layers):
             p = _layer(params["blocks"], i)
             if remat:
+                # no RNG state to keep (the model has no dropout), and
+                # saving it is not allowed while a CUDA graph captures
                 x = checkpoint(self._block, attend, i, p, x,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = self._block(attend, i, p, x)
         return x

@@ -3,9 +3,19 @@
 Counterpart of ``repro.runtime.pipeline``.  The fused runner consumes one
 period of batches per dispatch.  :class:`PeriodPrefetcher` builds up to
 ``depth`` future periods while the current one runs: ``get()`` hands back
-the already-staged batch, the runner dispatches the period's steps, then
-calls :meth:`prefetch` for the following periods *before* it waits for
-the device.
+the already-staged batch, the runner dispatches the period, then calls
+:meth:`prefetch` for the following periods *before* it waits for the
+device.
+
+Two layouts, one per fused mode:
+
+* ``stacked=False`` (``pipeline`` mode) — the H per-step batches, each
+  moved to ``device`` as the per-step path moves it;
+* ``stacked=True`` (``compiled`` mode) — the period stacked ``[H, ...]``.
+  For a CUDA ``device`` host batches are stacked into pinned memory and
+  copied ``non_blocking`` on a side stream, so the copy overlaps the
+  device's work; ``get()`` makes the current stream wait for that copy.
+  A data source already on the device is stacked there.
 
 Two staging modes:
 
@@ -17,7 +27,8 @@ Two staging modes:
   ``get()`` blocks on the slot's event if the batch is still being built.
 
 Each period batch is a pure function of its start step (``data.batch``
-is deterministic), so batches are identical across depths and modes.
+is deterministic), so batches are identical across depths, modes and
+layouts.
 """
 
 from __future__ import annotations
@@ -28,11 +39,18 @@ from typing import Any
 
 import torch
 
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 
-__all__ = ["PeriodPrefetcher", "stack_period_batches"]
+__all__ = ["PeriodPrefetcher", "stack_period_batches", "to_device"]
 
 Tree = Any
+
+
+def to_device(batch: Tree, device: torch.device | None) -> Tree:
+    """``batch`` on ``device`` (``None``: where it is)."""
+    if device is None:
+        return batch
+    return tree_map(lambda x: x.to(device), batch)
 
 
 def stack_period_batches(data: Any, start: int, h: int) -> Tree:
@@ -68,8 +86,20 @@ class _Slot:
         return value
 
 
+class _Copied:
+    """A stacked period on the device, its copy still in flight on a side
+    stream until ``done``."""
+
+    __slots__ = ("value", "done")
+
+    def __init__(self, value: Tree, done: torch.cuda.Event):
+        self.value = value
+        self.done = done
+
+
 class PeriodPrefetcher:
-    """Depth-``k`` staging of period training batches.
+    """Depth-``k`` staging of period training batches onto ``device``
+    (``None``: left where ``data.batch`` puts them).
 
     ``stacked=True`` yields the ``[H, ...]`` layout; ``stacked=False``
     yields the list of H per-step batches the pipeline-mode runner feeds
@@ -82,21 +112,45 @@ class PeriodPrefetcher:
     """
 
     def __init__(self, data: Any, h: int, *, stacked: bool = True,
-                 depth: int = 1, background: bool = False):
+                 depth: int = 1, background: bool = False,
+                 device: torch.device | None = None):
         self.data = data
         self.h = h
         self.stacked = stacked
         self.depth = max(1, depth)
         self.background = background
+        self.device = device
         self._staged: dict[int, _Slot] = {}
         self._gen = 0
         self._queue: queue.Queue | None = None
         self._thread: threading.Thread | None = None
+        self._stream: torch.cuda.Stream | None = None
 
     def _build(self, start: int) -> Tree:
-        if self.stacked:
-            return stack_period_batches(self.data, start, self.h)
-        return [self.data.batch(r) for r in range(start, start + self.h)]
+        if not self.stacked:
+            return [to_device(self.data.batch(r), self.device)
+                    for r in range(start, start + self.h)]
+        if self.device is None or self.device.type != "cuda":
+            return to_device(stack_period_batches(self.data, start, self.h),
+                             self.device)
+        batches = [self.data.batch(r) for r in range(start, start + self.h)]
+
+        def pinned(*xs):
+            if xs[0].is_cuda:                    # a source on the device
+                return torch.stack(xs)
+            out = torch.empty((len(xs), *xs[0].shape), dtype=xs[0].dtype,
+                              pin_memory=True)
+            return torch.stack(xs, out=out)
+
+        host = tree_map(pinned, *batches)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            value = tree_map(lambda x: x.to(self.device, non_blocking=True),
+                             host)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return _Copied(value, done)
 
     # -------------------------------------------------------- background
     def _ensure_worker(self) -> None:
@@ -140,9 +194,21 @@ class PeriodPrefetcher:
         for s in [s for s in self._staged if s < start]:
             del self._staged[s]
         slot = self._staged.pop(start, None)
-        if slot is not None:
-            return slot.take()
-        return self._build(start)
+        value = slot.take() if slot is not None else self._build(start)
+        if not isinstance(value, _Copied):
+            return value
+        main = torch.cuda.current_stream(self.device)
+        main.wait_event(value.done)
+        for x in tree_leaves(value.value):
+            x.record_stream(main)            # made on the side stream
+        return value.value
+
+    def settle(self) -> None:
+        """Wait until every staged period is built, so no staging work is
+        in flight on another thread (a CUDA graph capture must not meet
+        one)."""
+        for slot in self._staged.values():
+            slot.ready.wait()
 
     def prefetch(self, start: int, *, last: int | None = None) -> None:
         """Stage the periods ``start, start + H, ...`` up to ``depth``

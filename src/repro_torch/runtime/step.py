@@ -18,11 +18,14 @@ gradients are written into one worker-stacked buffer, so the optimizer
 and the syncs see ``[W, ...]`` leaves as in the reference.
 
 Steps update the state **in place** (parameters, optimizer state, EF
-residuals) and return it with the step counter advanced; the counter,
-the learning rate and the loss stay on the device, so a step reads
-nothing back to the host.  The optimizer update and the syncs run in
-``torch.profiler`` ranges (``repro_torch.optimizer``,
-``repro_torch.sync``), so a profile can charge device time to them.
+residuals, the step counter) and return it; the counter, the learning
+rate and the loss stay on the device, so a step reads nothing back to
+the host, and a CUDA graph that captured a step replays it on the same
+tensors.  :func:`make_period_step` composes a whole period's phase
+bodies into the one function the runner's ``compiled`` mode captures.
+The optimizer update and the syncs run in ``torch.profiler`` ranges
+(``repro_torch.optimizer``, ``repro_torch.sync``), so a profile can
+charge device time to them.
 
 **Serving.**  The reference builds jitted closures
 (``make_slot_prefill_step`` and friends) and vmaps single-lane steps over
@@ -42,13 +45,13 @@ from torch.profiler import record_function
 from ..core.outer_opt import OuterConfig, OuterState
 from ..core.partial_sync import (UnitLayout, contiguous_ranges, divergence,
                                  sync_units, tree_worker_mean, worker_stack)
-from ..core.plans import SyncPlan
+from ..core.plans import SyncPlan, local_plan
 from ..core.sync_policies import SyncPolicy, resolve_policy
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["TrainState", "StepConfig", "init_train_state",
            "per_worker_grads", "make_train_step", "make_phase_steps",
-           "compose_makeup_step",
+           "compose_makeup_step", "make_period_step",
            "slot_prefill", "slot_decode", "slot_decode_paged"]
 
 Tree = Any
@@ -180,8 +183,8 @@ def make_train_step(model, optimizer, plan: SyncPlan, phase: int, *,
                                                  layout)
         if cfg.track_divergence:
             metrics["divergence"] = divergence(params)
-        return TrainState(params, opt_state, state.step + 1, ef,
-                          outer), metrics
+        state.step.add_(1)
+        return TrainState(params, opt_state, state.step, ef, outer), metrics
 
     return train_step
 
@@ -205,6 +208,52 @@ def compose_makeup_step(local_step, units, layout: UnitLayout):
         return new_state, m
 
     return makeup
+
+
+def make_period_step(model, optimizer, plan: SyncPlan, *,
+                     cfg: StepConfig = StepConfig(),
+                     makeup_units: tuple[int, ...] = ()):
+    """All ``H`` phase steps of ``plan`` as one function (the
+    reference's one jitted period program).
+
+    ``batch`` leaves carry a leading phase axis (``{tokens: [H, W, B,
+    S], ...}``).  Consecutive phases with one unit set
+    (``plan.phase_segments()``) share one body, run once per phase on
+    its slice of the batch; the bodies are the per-step path's own, so
+    a period gives that path's states bitwise.  ``makeup_units``
+    (straggler make-up at a period boundary) makes phase 0 the make-up
+    body (:func:`compose_makeup_step`).  Returns the state, updated in
+    place, and the metrics stacked ``[H]`` on the device.
+    """
+    layout = model.unit_layout()
+    segments = list(plan.phase_segments())
+    if makeup_units:
+        # phase 0 gets its own body; split it out of its segment
+        _, l0 = segments[0]
+        segments = [(0, 1)] + ([(1, l0 - 1)] if l0 > 1 else []) \
+            + segments[1:]
+    bodies = {}
+    for start, _ in segments:
+        if start == 0 and makeup_units:
+            local = make_train_step(model, optimizer,
+                                    local_plan(plan.n_units), 0, cfg=cfg)
+            bodies[0] = compose_makeup_step(local, makeup_units, layout)
+        else:
+            bodies[start] = make_train_step(model, optimizer, plan, start,
+                                            cfg=cfg)
+
+    def period_step(state: TrainState, batch: dict
+                    ) -> tuple[TrainState, dict]:
+        metrics = []
+        for start, length in segments:
+            for h in range(start, start + length):
+                state, m = bodies[start](state, {k: v[h] for k, v in
+                                                 batch.items()})
+                metrics.append(m)
+        return state, {k: torch.stack([m[k] for m in metrics])
+                       for k in metrics[0]}
+
+    return period_step
 
 
 # ---------------------------------------------------------------------------

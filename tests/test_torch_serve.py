@@ -319,6 +319,7 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch.api, repro_torch.launch.train\n"
         "import repro_torch.core, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.parallel, repro_torch.runtime\n"
+        "import repro_torch.checkpoint\n"
         "from repro_torch.api import JobConfig, Session\n"
         "Session(JobConfig(workers=2, seq=8, batch_per_worker=1),"
         " device='cpu').fit(2)\n"

@@ -18,13 +18,24 @@
   rounding noise of a near-zero gradient into a step of up to lr — or,
   with int8 syncs, 5e-3: a value near a rounding boundary may take the
   next code, one quantum (~2e-3) of its row's scale.
-* **Runner** — the port's fused pipeline bitwise equal to its own
-  per-step path (states and losses), and straggler requeue giving the
-  JAX runner's ``pending_units`` and ``skipped_syncs``.
+  The ``compiled`` period executor (its period body without a graph on
+  the CPU) is held to the same JAX oracle.
+* **Runner** — the port's fused ``pipeline`` and ``compiled`` executors
+  bitwise equal to its own per-step path (states and losses, H = 1, 3
+  and 5), straggler requeue giving the JAX runner's ``pending_units`` and
+  ``skipped_syncs``; a restart from a checkpoint bitwise equal to an
+  uninterrupted run on all three paths; failure recovery and elastic
+  restore against the JAX runner's (losses within the per-step ``rtol``
+  above, parameters within its tolerances); ``Session(ckpt_dir=...)``
+  resuming; the period body making no host read (what a CUDA graph
+  capture would break on).
 * **Entry points** — the default ``Session(JobConfig()).fit(10)`` (granite
   smoke, dreamddp, 8 workers, H=5, adam, fused pipeline) on the CPU, the
   GPU default raising without a card, the CLI, and the parts not ported
   yet raising ``NotImplementedError``.
+
+The card's twins (CUDA graphs, bitwise against ``pipeline``) are in
+``tests/test_torch_train_graphs.py``.
 """
 
 import dataclasses
@@ -178,12 +189,18 @@ def _load(state, params_np):
         t.copy_(torch.from_numpy(np.array(a)))
 
 
-@pytest.mark.parametrize("algo", ["dreamddp", "dreamddp-int8", "flsgd",
-                                  "ssgd"])
-def test_session_fit_matches_jax_per_step(algo):
+@pytest.mark.parametrize("algo,exec_", [
+    pytest.param("dreamddp", "pipeline", id="dreamddp"),
+    pytest.param("dreamddp-int8", "pipeline", id="dreamddp-int8"),
+    pytest.param("flsgd", "pipeline", id="flsgd"),
+    pytest.param("ssgd", "pipeline", id="ssgd"),
+    pytest.param("dreamddp", "compiled", id="dreamddp-compiled"),
+    pytest.param("dreamddp-int8", "compiled", id="dreamddp-int8-compiled"),
+])
+def test_session_fit_matches_jax_per_step(algo, exec_):
     steps = 6
     js, init = _jax_session(algo, steps)
-    cfg = JobConfig(**_job(algo))
+    cfg = JobConfig(**_job(algo, period_exec=exec_))
     ts = Session(cfg, model=DecoderLM(LMConfig(**_TINY)),
                  data=_JaxBatches(JMarkovCorpus(
                      vocab=_TINY["vocab"], seq_len=cfg.seq,
@@ -208,9 +225,9 @@ def test_session_fit_matches_jax_per_step(algo):
 # runner: fused == per-step (bitwise), straggler requeue
 # ---------------------------------------------------------------------------
 
-def _port_runner(algo, *, fused, H=3, W=2, run_kw=None):
+def _port_runner(algo, *, fused, H=3, W=2, run_kw=None, **job_kw):
     sess = Session(JobConfig(**{**_job(algo), "period": H, "workers": W,
-                                "fused_period": fused}),
+                                "fused_period": fused, **job_kw}),
                    model=DecoderLM(LMConfig(**_TINY)), device="cpu")
     if run_kw:
         sess.runner.run_cfg = dataclasses.replace(sess.runner.run_cfg,
@@ -218,11 +235,18 @@ def _port_runner(algo, *, fused, H=3, W=2, run_kw=None):
     return sess
 
 
-@pytest.mark.parametrize("algo", ["dreamddp", "dreamddp-int8"])
-def test_fused_pipeline_bitwise_equals_per_step(algo):
-    n = 2 * 3 + 2                          # two periods and a tail
-    per_step = _port_runner(algo, fused=False).fit(n)
-    fused = _port_runner(algo, fused=True).fit(n)
+@pytest.mark.parametrize("algo,exec_,H", [
+    pytest.param("dreamddp", "pipeline", 3, id="dreamddp"),
+    pytest.param("dreamddp-int8", "pipeline", 3, id="dreamddp-int8"),
+    pytest.param("dreamddp", "compiled", 1, id="dreamddp-compiled-H1"),
+    pytest.param("dreamddp", "compiled", 5, id="dreamddp-compiled-H5"),
+    pytest.param("dreamddp-int8", "compiled", 5,
+                 id="dreamddp-int8-compiled-H5"),
+])
+def test_fused_pipeline_bitwise_equals_per_step(algo, exec_, H):
+    n = 2 * H + 2                          # two periods and a tail
+    per_step = _port_runner(algo, fused=False, H=H).fit(n)
+    fused = _port_runner(algo, fused=True, H=H, period_exec=exec_).fit(n)
     for a, b in zip(tree_leaves(per_step.state), tree_leaves(fused.state),
                     strict=True):
         if isinstance(a, torch.Tensor):
@@ -236,10 +260,15 @@ def _tree_state(state):
     return [x for x in tree_leaves(state._asdict()) if x is not None]
 
 
-@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("fused", [False, True, "compiled"])
 def test_straggler_requeue_matches_jax(fused):
+    """``"compiled"``: the port's compiled executor (the make-up period
+    body) against the JAX pipeline, and bitwise against its own
+    pipeline on the same schedule."""
     from repro.api import Session as JS
     from repro.runtime import RunnerConfig as JRunnerConfig
+    exec_ = "compiled" if fused == "compiled" else "pipeline"
+    fused = bool(fused)
     H, n = 2, 8                            # four periods
     # a 1e4x deadline: only the injected stall (1e8 s) can trip it, not
     # JAX's first compile of the make-up step nor a busy CPU
@@ -248,18 +277,202 @@ def test_straggler_requeue_matches_jax(fused):
             model=JDecoderLM(JLMConfig(**_TINY)))
     jr = js.runner
     jr.run_cfg = JRunnerConfig(**{**jr.run_cfg.__dict__, **jrc})
-    ts = _port_runner("dreamddp", fused=fused, H=H, run_kw=jrc)
-    tr = ts.runner
     at = (5, 1e8)                          # phase 1 of the third period
     jstate = jr.run(js.state, 3 * H, fused=fused, inject_straggler_at=at)
-    tstate = tr.run(ts.state, 3 * H, fused=fused, inject_straggler_at=at)
-    assert tr.pending_units == jr.pending_units and tr.pending_units
-    assert tr.skipped_syncs == jr.skipped_syncs == 1
-    # the make-up runs at the next period start and clears the queue
+    runs = []
+    for mode in {exec_, "pipeline"}:
+        ts = _port_runner("dreamddp", fused=fused, H=H, run_kw=jrc,
+                          period_exec=mode)
+        tr = ts.runner
+        tstate = tr.run(ts.state, 3 * H, fused=fused, inject_straggler_at=at)
+        assert tr.pending_units == jr.pending_units and tr.pending_units
+        assert tr.skipped_syncs == jr.skipped_syncs == 1
+        # the make-up runs at the next period start and clears the queue
+        tr.run(tstate, n - 3 * H, start_step=3 * H, fused=fused)
+        runs.append(tstate)
     jr.run(jstate, n - 3 * H, start_step=3 * H, fused=fused)
-    tr.run(tstate, n - 3 * H, start_step=3 * H, fused=fused)
     assert tr.pending_units == jr.pending_units == set()
     assert len(tr.history) == len(jr.history) == n
+    for a, b in zip(_tree_state(runs[0]), _tree_state(runs[-1]),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: restart, recovery and elastic restore
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("exec_", ["per-step", "pipeline", "compiled"])
+def test_restart_equals_uninterrupted(exec_, tmp_path):
+    """A checkpoint every period and a failure inside the second period:
+    the restore (in place) and replay end bitwise where a run that never
+    failed ends."""
+    from repro_torch.checkpoint import CheckpointManager
+    H, n = 3, 4 * 3
+    fused = exec_ != "per-step"
+    mode = "compiled" if exec_ == "compiled" else "pipeline"
+    ok = _port_runner("dreamddp-int8", fused=fused, H=H, period_exec=mode)
+    ok.fit(n)
+    sess = _port_runner("dreamddp-int8", fused=fused, H=H, period_exec=mode,
+                        run_kw={"ckpt_every": H})
+    r = sess.runner
+    r.ckpt = CheckpointManager(str(tmp_path))
+    ptrs = [x.data_ptr() for x in _tree_state(sess.state)]
+    state = r.run(sess.state, n, fused=fused, inject_failure_at=H + 1)
+    assert r.retries == 1 and r.ckpt.latest_step() == n
+    assert [x.data_ptr() for x in _tree_state(state)] == ptrs
+    assert int(state.step) == n
+    for a, b in zip(_tree_state(ok.state), _tree_state(state), strict=True):
+        assert torch.equal(a, b)
+    # the per-step path logged step H before the failure at H + 1; the
+    # fused path loses the failed period's rows
+    done = H if fused else H + 1
+    assert [h["step"] for h in r.history] == list(range(done)) + \
+        list(range(H, n))
+
+
+def _mirrored(algo, tmp_path, **kw):
+    """The JAX per-step session and the port's over the same initial
+    parameters and batches, each with checkpoints in ``tmp_path``.  A
+    1e4x straggler deadline on both: JAX's compile of a step rebuilt by
+    ``replan`` must not requeue a sync the port never requeues."""
+    job = _job(algo, fused_period=False, **kw)
+    js = JSession(JJobConfig(**job, ckpt_dir=str(tmp_path / "jax")),
+                  model=JDecoderLM(JLMConfig(**_TINY)))
+    cfg = JobConfig(**job, ckpt_dir=str(tmp_path / "port"))
+    ts = Session(cfg, model=DecoderLM(LMConfig(**_TINY)),
+                 data=_JaxBatches(JMarkovCorpus(
+                     vocab=_TINY["vocab"], seq_len=cfg.seq,
+                     batch_per_worker=cfg.batch_per_worker,
+                     n_workers=cfg.workers, seed=cfg.seed)),
+                 device="cpu")
+    _load(ts.state, jax.device_get(js.state.params))
+    for r in (js.runner, ts.runner):
+        r.run_cfg = dataclasses.replace(r.run_cfg, deadline_factor=1e4)
+    return js, ts
+
+
+def _histories_match(jr, tr):
+    assert [h["step"] for h in tr.history] == [h["step"] for h in jr.history]
+    np.testing.assert_allclose([h["loss"] for h in tr.history],
+                               [h["loss"] for h in jr.history], rtol=1e-5)
+
+
+def test_failure_recovery_matches_jax(tmp_path):
+    """``tests/test_train_integration.py::test_failure_recovery`` on both
+    runners: a checkpoint every 4 steps, a failure at step 7, the same
+    replay (steps 0-6, then 4-11) and states within the per-step
+    tolerances."""
+    js, ts = _mirrored("dreamddp", tmp_path, ckpt_every=4)
+    jr, tr = js.runner, ts.runner
+    jr.ckpt.save(0, js.state, block=True)
+    tr.ckpt.save(0, ts.state, block=True)
+    jstate = jr.run(js.state, 12, inject_failure_at=7)
+    tstate = tr.run(ts.state, 12, inject_failure_at=7)
+    assert tr.retries == jr.retries == 1
+    assert [h["step"] for h in tr.history] == list(range(7)) + \
+        list(range(4, 12))
+    _histories_match(jr, tr)
+    assert tr.skipped_syncs == jr.skipped_syncs == 0
+    _params_match(tstate.params, jax.device_get(jstate.params), 1e-3, 1e-3)
+
+
+def test_elastic_restore_matches_jax(tmp_path):
+    """``tests/test_train_integration.py::test_elastic_restore`` on both
+    runners: 8 steps on 2 workers, then the reference's step-8
+    checkpoint through both ``restore_elastic`` onto 4 workers (replicas
+    averaged) with a plan re-solved for them, then 4 more steps.  The
+    same checkpoint goes into both, so each stretch starts from equal
+    inputs, as the session test does."""
+    from repro.runtime import init_train_state as jinit
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import make_optimizer
+    js, ts = _mirrored("dreamddp", tmp_path, ckpt_every=8)
+    jr, tr = js.runner, ts.runner
+    jr.run(js.state, 8)
+    tr.run(ts.state, 8)
+    _histories_match(jr, tr)
+    assert tr.ckpt.latest_step() == 8
+    tr.ckpt = CheckpointManager(str(tmp_path / "jax"))
+    jplan = js.strategy.build_plan(js.profile().with_bandwidth(
+        1e9, js.cfg.latency, 4), js.cfg.period)
+    tplan = ts.strategy.build_plan(ts.profile().with_bandwidth(
+        1e9, ts.cfg.latency, 4), ts.cfg.period)
+    assert tplan.fingerprint() == jplan.fingerprint()
+    jstep, jstate = jr.restore_elastic(
+        jinit(js.model, js._opt, jax.random.PRNGKey(0), 4), 4, jplan)
+    tstep, tstate = tr.restore_elastic(
+        init_train_state(ts.model, make_optimizer("adam"),
+                         torch.Generator().manual_seed(0), 4), 4, tplan)
+    assert tstep == jstep == 8 and tr.plan is tplan
+    assert all(x.shape[0] == 4 for x in tree_leaves(tstate.params))
+    _tree_close(tstate.params, jax.device_get(jstate.params), 1e-6, 0)
+    _tree_close(tstate.opt_state, jax.device_get(jstate.opt_state), 1e-6, 0)
+    corpus = dict(vocab=_TINY["vocab"], seq_len=ts.cfg.seq,
+                  batch_per_worker=ts.cfg.batch_per_worker, n_workers=4,
+                  seed=0)
+    jr.data = JMarkovCorpus(**corpus)
+    tr.data = _JaxBatches(JMarkovCorpus(**corpus))
+    jstate = jr.run(jstate, 4, start_step=jstep)
+    tstate = tr.run(tstate, 4, start_step=tstep)
+    _histories_match(jr, tr)
+    assert tr.skipped_syncs == jr.skipped_syncs == 0
+    _params_match(tstate.params, jax.device_get(jstate.params), 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("exec_", ["pipeline", "compiled"])
+def test_session_ckpt_dir_resumes(exec_, tmp_path):
+    """A session over ``ckpt_dir`` saves every period; a fresh session
+    over the same directory restores the latest one in place and trains
+    on bitwise as the first does."""
+    H = 2
+    job = dict(period_exec=exec_, ckpt_dir=str(tmp_path), ckpt_every=H)
+    a = _port_runner("dreamddp", fused=True, H=H, **job).fit(2 * H)
+    b = _port_runner("dreamddp", fused=True, H=H, **job)
+    ptrs = [x.data_ptr() for x in _tree_state(b.state)]
+    assert b.restore() == 2 * H
+    assert [x.data_ptr() for x in _tree_state(b.state)] == ptrs
+    a.fit(H)
+    b.fit(H)
+    assert [h["step"] for h in b.history] == list(range(2 * H, 3 * H))
+    assert [h["loss"] for h in b.history] == \
+        [h["loss"] for h in a.history[2 * H:]]
+    for x, y in zip(_tree_state(a.state), _tree_state(b.state), strict=True):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="ckpt_dir"):
+        _port_runner("dreamddp", fused=True).restore()
+
+
+@pytest.mark.parametrize("algo", ["dreamddp", "dreamddp-int8"])
+def test_period_body_reads_nothing_back_to_the_host(algo, monkeypatch):
+    """What a CUDA graph capture cannot take fails here: after one
+    period (the warm-up the card runs before it captures), the period
+    body — remat on, a make-up phase 0 included — may not turn a tensor
+    into a Python value or build one from host data."""
+    from repro_torch.runtime.pipeline import stack_period_batches
+    from repro_torch.runtime.step import make_period_step
+    sess = Session(JobConfig(**{**_job(algo, period_exec="compiled"),
+                                "period": 3}),
+                   model=DecoderLM(LMConfig(**{**_TINY, "remat": True})),
+                   device="cpu")
+    sess.fit(3)
+    r = sess.runner
+    batch = stack_period_batches(r.data, 3, 3)
+    bodies = [r._period_step(()), make_period_step(
+        r.model, r.optimizer, r.plan, cfg=r.step_cfg, makeup_units=(0, 2))]
+
+    def host_read(*a, **k):
+        raise AssertionError("host read inside the period body")
+
+    with monkeypatch.context() as m:
+        for name in ("item", "tolist", "numpy", "cpu", "__bool__",
+                     "__int__", "__float__", "__index__"):
+            m.setattr(torch.Tensor, name, host_read)
+        m.setattr(torch, "tensor", host_read)
+        for body in bodies:
+            _, metrics = body(sess.state, batch)
+    assert metrics["loss"].shape == (3,)
+    assert int(sess.state.step) == 9
 
 
 # ---------------------------------------------------------------------------
@@ -301,18 +514,11 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="A item 10"):
         Session(JobConfig(algo="hier-async"), model=model,
                 device="cpu").fit(5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Session(JobConfig(ckpt_dir="ckpt"), model=model, device="cpu")
-    sess = Session(JobConfig(**_job("dreamddp", period_exec="compiled")),
-                   model=model, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sess.fit(3)
-    with pytest.raises(NotImplementedError):
+    sess = Session(JobConfig(**_job("dreamddp")), model=model, device="cpu")
+    with pytest.raises(NotImplementedError, match="A item 10"):
         sess.simulate("churn")
     from repro_torch.serve import ServeEngine
     assert isinstance(sess.serve(), ServeEngine)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sess.runner.restore_elastic(sess.state, 2, sess.plan)
     assert Session(JobConfig(algo="hier-2tier"), model=model,
                    device="cpu").plan.algo == "hier-2tier"
 
