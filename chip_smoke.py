@@ -108,10 +108,42 @@ code is non-zero):
    The grouped SSD entry's counter is set to 0 just before and read
    just after: 48 launches per prefill call.
 14. ``mamba2_profile`` — its decode blocks alone under ``torch.profiler``.
+15. ``sim`` — SimNet on the host: ``check_library`` for ``dreamddp``,
+   ``plsgd-enp`` and ``flsgd`` and ``check_async_library``, every window
+   passing; ``Session.simulate`` of every library scenario in both modes
+   on granite-3-2b's analytic profile at published widths (each trace's
+   fingerprint, virtual seconds and replans); then ``measured_profile``
+   of granite-3-2b's units on the card (one full-width block, the
+   embedding and the tied head with the loss, forward and backward,
+   batch 4 x 512, bf16) and the ``drifting-bandwidth`` and ``hier-2tier``
+   replays on it.
+16. ``async_reference`` — granite SMOKE (float32) on the async runtime,
+   4 workers in 2 datacenters, H = 5, 3 periods, a worker leaving and
+   one joining: ``AsyncHierRunner`` on the card (through fused AdamW)
+   against the CPU (plain versions) from one template and the same
+   batches: equal op logs and trace fingerprints, losses and server
+   params within ``TRAIN_REF_TOL["dreamddp"]``, fused AdamW exactly 11 x
+   H per ``PeriodOp``; a run checkpointing every ``ASYNC_CKPT_EVERY``
+   merges and a fresh runner restored from its middle checkpoint, both
+   **bitwise** the uninterrupted card run.
+17. ``async_train`` — the train phase's granite-3-2b (published widths,
+   8 layers, 4 workers, bf16, 4 x 512 tokens a worker) on the async
+   runtime: ``Session(JobConfig(algo="hier-async", ...)).fit(15)``, 3
+   periods per worker on the static scenario.  The bytes are reckoned
+   from the op log before the run (worker states, server, the most
+   bases and deltas alive at once) and printed beside the measured
+   peak.  Reports wall seconds, ms per worker-step (CUDA events around
+   each period / H), ms per merge and per pull + delta, merges, the
+   staleness histogram, peak and reserved bytes, the history's and the
+   global model's first and last loss (finite, falling); fused AdamW's
+   launches (counters set to 0 just before ``fit``, read just after)
+   exactly 11 x H per ``PeriodOp``; then ``Session.serve().generate``
+   on the broadcast global model.
 
 Then one ``{"kernels": [...]}`` line (each kernel's cases, launches on
-its path, and ptxas's registers, shared memory and spills for its
-source), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+its path — fused AdamW's on the async path too, as
+``launches_async_train`` — and ptxas's registers, shared memory and
+spills for its source), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -153,7 +185,7 @@ from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
                                SamplingParams, ServeEngine)
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 3.35 TB/s,
 # bf16 tensor cores 989 TFLOP/s, float32 outside the tensor cores 67.
@@ -1568,6 +1600,428 @@ def mamba2_serve(model, params) -> dict:
     }
 
 
+# ------------------------------------------------- SimNet and async runtime
+
+# The async phases' scenarios: 4 workers in 2 datacenters, H = 5, 3
+# periods, one worker leaving at period 1 and one joining at period 2,
+# links fast enough beside the smoke model's (analytic) compute that
+# merges land between pulls and periods.
+ASYNC_H, ASYNC_PERIODS = 5, 3
+ASYNC_CKPT_EVERY = 4                   # merges between async checkpoints
+SIM_ALGOS = ("dreamddp", "plsgd-enp", "flsgd")
+# the async_train phase: train_job's geometry on the async runtime,
+# 3 periods per worker on the static scenario
+ASYNC_TRAIN_STEPS = 3 * TRAIN_H
+
+
+def sim_job(workers: int = 8) -> JobConfig:
+    """granite-3-2b at published widths and depth, the planning geometry
+    of the train phase (4 x 512 tokens per worker, H = 5)."""
+    return JobConfig(arch="granite-3-2b", algo="dreamddp", workers=workers,
+                     period=TRAIN_H, batch_per_worker=TRAIN_B, seq=TRAIN_S,
+                     smoke=False)
+
+
+def block_thunks() -> list:
+    """``measured_profile`` thunks for granite-3-2b's units at published
+    widths on the card: one block (batch 4 x 512, bf16, random weights),
+    the embedding and the tied head with the loss, each a forward and a
+    backward (gradients of the inputs and the unit's weights) and a
+    synchronize.  Every block unit is timed on its own call of that one
+    block's thunk."""
+    from repro_torch.models.layers import embed, gqa_attention, softmax_xent
+    cfg = dataclasses.replace(granite_3_2b.CONFIG, n_layers=1)
+    model = DecoderLM(cfg)
+    gen = torch.Generator("cuda").manual_seed(11)
+    params = model.init(gen)
+    b, s, d = TRAIN_B, TRAIN_S, cfg.d_model
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda")
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    x0 = torch.randn(b, s, d, generator=gen, device="cuda").to(cfg.dtype)
+
+    def attend(_i, p, h):
+        q, k, v = model._project_qkv(p, h, positions)
+        out = gqa_attention(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=True,
+                            window=cfg.window)
+        return out.reshape(b, s, -1) @ p["wo"]["w"]
+
+    def thunk(inputs, forward):
+        def run():
+            out = forward(*inputs)
+            torch.autograd.grad(out.float().sum(), inputs)
+            torch.cuda.synchronize()
+        return run
+
+    x = x0.detach().requires_grad_()
+    # layer 0 of the one-layer stack; its leaves are inputs of the grad
+    p = tree_map(lambda t: t[0].detach().requires_grad_(), params["blocks"])
+    blk = tree_leaves(p)
+
+    def block_fwd(x, *_):
+        return model._block(attend, 0, p, x)
+
+    table = params["embed"]["table"].detach().requires_grad_()
+    scale = params["head"]["norm"]["scale"].detach().requires_grad_()
+
+    def head_fwd(x, scale, table):
+        h = model._norm({"scale": scale}, x)
+        return softmax_xent((h @ table.T)[:, :-1], tokens[:, 1:])
+
+    costs = model.layer_costs(b, s)
+    n_params = {name: n for name, n, _ in costs}
+    out = [("embed", thunk([table], lambda t: embed({"table": t}, tokens)),
+            n_params["embed"] * 2)]
+    out += [(f"layer_{i}", thunk([x, *blk], block_fwd),
+             n_params["layer_0"] * 2)
+            for i in range(granite_3_2b.CONFIG.n_layers)]
+    out.append(("head", thunk([x, scale, table], head_fwd),
+                n_params["head"] * 2))
+    return out
+
+
+def sim() -> dict:
+    """SimNet on the host: the conformance sweeps (every window must
+    pass), then ``Session.simulate`` of every library scenario in both
+    modes on granite-3-2b's analytic profile at published widths, then
+    the drifting-bandwidth and hier-2tier replays on a profile measured
+    on the card (``measured_profile``)."""
+    from repro_torch.core.profiler import measured_profile
+    from repro_torch.hier import check_async_library
+    from repro_torch.sim import (available_scenarios, check_library,
+                                 get_scenario)
+    t0 = time.perf_counter()
+    sync_reports = check_library(algos=SIM_ALGOS, H=4)
+    async_reports = check_async_library()
+    bad = [r.summary() for r in sync_reports + async_reports if not r.ok]
+    if bad or not sync_reports or not async_reports:
+        raise RuntimeError(f"SimNet conformance failed: {bad}")
+    conformance_s = time.perf_counter() - t0
+
+    def replay(sess, name, mode, profile=None):
+        report = sess.simulate(name, mode=mode, profile=profile)
+        trace = report.trace
+        if not trace.iteration_spans or not math.isfinite(trace.makespan):
+            raise RuntimeError(f"simulate {name} {mode}: empty trace")
+        return {"fingerprint": trace.fingerprint(),
+                "virtual_s": trace.makespan,
+                "final_merge_s": trace.meta.get("final_merge_time"),
+                "replans": len(report.plans) - 1,
+                "plans": [plan.fingerprint() for _, plan in report.plans]}
+
+    replays = {}
+    for name in available_scenarios():
+        sess = Session(sim_job(get_scenario(name).n_workers), device="cuda")
+        replays[name] = {mode: replay(sess, name, mode)
+                         for mode in ("sync", "async")}
+    sess = Session(sim_job(), device="cuda")
+    t0 = time.perf_counter()
+    measured = measured_profile(block_thunks(), sess.hardware)
+    profile_s = time.perf_counter() - t0
+    _free()
+    analytic = sess.profile()
+    on_measured = {}
+    for name in ("drifting-bandwidth", "hier-2tier"):
+        msess = Session(sim_job(get_scenario(name).n_workers),
+                        device="cuda")
+        hw_profile = measured.with_bandwidth(
+            msess.cfg.bandwidth, msess.cfg.latency, msess.cfg.workers)
+        on_measured[name] = {mode: replay(msess, name, mode, hw_profile)
+                             for mode in ("sync", "async")}
+    layer = measured.layers[1]
+    return {
+        "phase": "sim", "conformance": {
+            "sync_checks": len(sync_reports), "async_checks":
+                len(async_reports), "algos": list(SIM_ALGOS),
+            "all_windows_pass": True, "seconds": conformance_s,
+            "max_rel_err": max(r.max_rel_err for r in
+                               sync_reports + async_reports)},
+        "model": "granite-3-2b (published widths, 40 layers)",
+        "profile": "analytic (the reference's v5e planning constants)",
+        "replays": replays,
+        "measured_profile": {
+            "what": "fwd+bwd per unit on the card, bf16, batch 4 x 512",
+            "seconds": profile_s,
+            "block_ms": (layer.t_fp + layer.t_bp) * 1e3,
+            "embed_ms": (measured.layers[0].t_fp
+                         + measured.layers[0].t_bp) * 1e3,
+            "head_ms": (measured.layers[-1].t_fp
+                        + measured.layers[-1].t_bp) * 1e3,
+            "analytic_block_ms": (analytic.layers[1].t_fp
+                                  + analytic.layers[1].t_bp) * 1e3,
+        },
+        "replays_on_measured_profile": on_measured,
+    }
+
+
+def async_scenario():
+    from repro_torch.sim import LinkSpec, Scenario, WorkerJoin, WorkerLeave
+    return Scenario(
+        name="async-ref", description="4 workers, 2 DCs, leave and join",
+        n_workers=4, n_datacenters=2,
+        intra=LinkSpec(bandwidth=1e12, latency=1e-7, jitter=0.0),
+        inter=LinkSpec(bandwidth=2e11, latency=1e-6, jitter=0.0),
+        drift={}, events=(WorkerLeave(period=1, iteration=None, n=1),
+                          WorkerJoin(period=2, iteration=None, n=1)),
+        periods=ASYNC_PERIODS, seed=0)
+
+
+def async_runner(device: str, params, *, ckpt=None, every: int = 0):
+    """The async_reference runner: granite SMOKE (float32) from
+    ``params``, adam as ``Session`` makes it, the host corpus."""
+    from repro_torch.api.registry import get_strategy
+    from repro_torch.core.profiler import HardwareSpec, analytic_profile
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.hier import AsyncHierRunner, AsyncRunnerConfig
+    from repro_torch.optim import make_optimizer
+    model = DecoderLM(granite_3_2b.SMOKE)
+    job = JobConfig()
+    profile = analytic_profile(
+        model.layer_costs(job.batch_per_worker, job.seq),
+        HardwareSpec(bandwidth=1e12, latency=1e-7, n_workers=4))
+    data = MarkovCorpus(vocab=model.cfg.vocab, seq_len=job.seq,
+                        batch_per_worker=job.batch_per_worker, n_workers=4,
+                        seed=0)
+    opt = make_optimizer("adam", lr=job.lr, warmup_steps=job.warmup_steps,
+                         decay_steps=job.decay_steps)
+    return AsyncHierRunner(
+        model, opt, get_strategy("hier-async"), data, profile=profile,
+        scenario=async_scenario(), H=ASYNC_H, seed=0, ckpt=ckpt,
+        run_cfg=AsyncRunnerConfig(ckpt_every_merges=every),
+        params=_to(params, device), device=device)
+
+
+def _async_bitwise(a, b, what: str) -> None:
+    for x, y in zip(tree_leaves(a.server.state()),
+                    tree_leaves(b.server.state()), strict=True):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"{what}: server state differs")
+    if sorted(a.states) != sorted(b.states):
+        raise RuntimeError(f"{what}: workers {sorted(a.states)} != "
+                           f"{sorted(b.states)}")
+    for w in a.states:
+        _bitwise(a.states[w], b.states[w], f"{what}, worker {w}")
+
+
+def async_reference() -> dict:
+    """Granite SMOKE (float32) on the async runtime, card (through fused
+    AdamW) against CPU (plain versions) from the same template and
+    batches: equal op logs and trace fingerprints, losses and server
+    params within ``TRAIN_REF_TOL["dreamddp"]``, fused AdamW 11 x H
+    launches per PeriodOp; then a run checkpointing every
+    ASYNC_CKPT_EVERY merges, and a fresh card runner restored from its
+    middle checkpoint, both **bitwise** the uninterrupted card run."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.hier import JoinOp, LeaveOp, PeriodOp
+    tol = TRAIN_REF_TOL["dreamddp"]
+    params = DecoderLM(granite_3_2b.SMOKE).init(
+        torch.Generator("cuda").manual_seed(0))
+    card = async_runner("cuda", params)
+    cpu = async_runner("cpu", params)
+    ops = card._schedule(ASYNC_PERIODS)[0]
+    if [repr(o) for o in ops] != [repr(o) for o in
+                                  cpu._schedule(ASYNC_PERIODS)[0]]:
+        raise RuntimeError("async_reference: op logs differ")
+    if not (any(isinstance(o, JoinOp) for o in ops)
+            and any(isinstance(o, LeaveOp) for o in ops)):
+        raise RuntimeError("async_reference: no join or leave in the log")
+    periods = sum(isinstance(o, PeriodOp) for o in ops)
+    _reset_train_counts()
+    trace = card.run(ASYNC_PERIODS)
+    torch.cuda.synchronize()
+    launches = _train_counts()
+    cpu_trace = cpu.run(ASYNC_PERIODS)
+    if launches["fused_adamw"] != 11 * ASYNC_H * periods:
+        raise RuntimeError(f"async_reference: fused_adamw launched "
+                           f"{launches['fused_adamw']} times, want "
+                           f"{11 * ASYNC_H * periods}")
+    if trace.fingerprint() != cpu_trace.fingerprint():
+        raise RuntimeError("async_reference: trace fingerprints differ")
+    lc = np.array([h["loss"] for h in card.history])
+    lp = np.array([h["loss"] for h in cpu.history])
+    loss_err = float(np.max(np.abs(lc - lp) / np.abs(lp)))
+    if not np.isfinite(lc).all() or loss_err > tol["loss_rtol"]:
+        raise RuntimeError(f"async_reference: losses {lc} vs {lp}")
+    worst, share = 0.0, 0.0
+    for x, y in zip(tree_leaves(card.server.params),
+                    tree_leaves(cpu.server.params), strict=True):
+        d = (x.cpu() - y).abs()
+        frac = (d > tol["bulk_atol"]).float().mean().item()
+        if d.max().item() > tol["max_atol"] or frac > tol["share"]:
+            raise RuntimeError(f"async_reference: server params differ by "
+                               f"up to {d.max().item()}, {frac} beyond "
+                               f"{tol['bulk_atol']}")
+        worst, share = max(worst, d.max().item()), max(share, frac)
+    ckpt_dir = ROOT / "build" / "chip_smoke_async_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        ck = async_runner("cuda", params,
+                          ckpt=CheckpointManager(str(ckpt_dir), keep=100),
+                          every=ASYNC_CKPT_EVERY)
+        if ck.run(ASYNC_PERIODS).fingerprint() != trace.fingerprint():
+            raise RuntimeError("async_reference: the checkpointing run's "
+                               "trace differs")
+        _async_bitwise(ck, card, "async checkpointing run")
+        steps = sorted(int(d.name.split("_")[1]) for d in
+                       ckpt_dir.iterdir() if d.name.startswith("step_"))
+        mid = steps[len(steps) // 2]
+        res = async_runner("cuda", params,
+                           ckpt=CheckpointManager(str(ckpt_dir), keep=100))
+        version = res.restore(step=mid)
+        cursor = res.cursor
+        if res.run(ASYNC_PERIODS).fingerprint() != trace.fingerprint():
+            raise RuntimeError("async_reference: the restored run's trace "
+                               "differs")
+        _async_bitwise(res, card, "async restore")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"phase": "async_reference", "model": "granite-3-2b SMOKE f32",
+            "workers": 4, "datacenters": 2, "H": ASYNC_H,
+            "periods": ASYNC_PERIODS, "ops": len(ops),
+            "period_ops": periods, "merges": card.server.version,
+            "staleness_hist": card.server.staleness_hist,
+            "fingerprint": trace.fingerprint(), "op_logs_equal": True,
+            "losses_card": lc.tolist(), "max_loss_rel_err": loss_err,
+            "max_param_abs_err": worst,
+            "max_share_beyond_bulk_atol": share, "tolerance": tol,
+            "launches": launches,
+            "restore": {"checkpoints": steps, "restored_version": version,
+                        "cursor": cursor, "bitwise_equal": True}}
+
+
+def async_buffer_peak(ops) -> int:
+    """Most float32 model-sized trees (bases and deltas) the runner holds
+    at once over ``ops``: a pull adds a base, a period turns its base into
+    the delta (kept while merges still name it), the last merge naming a
+    delta frees it, a leave drops a base."""
+    from repro_torch.hier import LeaveOp, MergeOp, PeriodOp, PullOp
+    refs = collections.Counter((c[0], c[1]) for op in ops
+                               if isinstance(op, MergeOp)
+                               for c in op.contributors)
+    bases, deltas, peak = set(), set(), 0
+    for op in ops:
+        if isinstance(op, PullOp):
+            bases.add(op.worker)
+        elif isinstance(op, PeriodOp):
+            bases.discard(op.worker)
+            if refs[op.worker, op.period]:
+                deltas.add((op.worker, op.period))
+        elif isinstance(op, MergeOp):
+            for c in op.contributors:
+                refs[c[0], c[1]] -= 1
+                if not refs[c[0], c[1]]:
+                    deltas.discard((c[0], c[1]))
+        elif isinstance(op, LeaveOp):
+            bases.discard(op.worker)
+        peak = max(peak, len(bases) + len(deltas))
+    return peak
+
+
+def _timed(events: dict, name: str, fn):
+    """``fn`` between two CUDA events, kept under ``name``."""
+    def wrapper(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        events[name].append((start, end))
+        return out
+    return wrapper
+
+
+def async_train() -> dict:
+    """granite-3-2b at published widths, depth 8, bf16, on the async
+    runtime through ``Session``: ``fit(15)`` (3 periods per worker on the
+    static scenario), then ``serve().generate`` on the broadcast global
+    model.  The bytes are reckoned from the op log before the run."""
+    from repro_torch.hier import PeriodOp
+    torch.cuda.reset_peak_memory_stats()
+    job = train_job("hier-async")
+    sess = Session(job, model=DecoderLM(TRAIN_MODEL), device="cuda")
+    runner = sess.runner
+    P = sess.model.param_count()
+    ops = runner._schedule(ASYNC_TRAIN_STEPS // TRAIN_H)[0]
+    periods = sum(isinstance(o, PeriodOp) for o in ops)
+    peak_trees = async_buffer_peak(ops)
+    reckoned = {
+        "params": P,
+        "workers_bf16_p_f32_m_v": job.workers * 10 * P,
+        "server_f32_params_momentum_buffer": 12 * P,
+        "bases_and_deltas_f32": peak_trees * 4 * P,
+        "bases_and_deltas_live_at_most": peak_trees,
+        "state_view_bf16": 2 * P, "one_worker_grads_bf16": 2 * P,
+    }
+    reckoned["total_without_activations"] = sum(
+        v for k, v in reckoned.items()
+        if k not in ("params", "bases_and_deltas_live_at_most"))
+    if reckoned["total_without_activations"] > 70e9:
+        raise RuntimeError(f"async_train reckons {reckoned} bytes; cut the "
+                           "workers, not the widths")
+    data = sess._data
+    probe = {k: v[0].to("cuda") for k, v in data.batch(10_000).items()}
+
+    def global_loss() -> float:
+        with torch.no_grad():
+            return sess.model.loss(worker_unstack(sess.state.params, 0),
+                                   probe).item()
+
+    loss0 = global_loss()
+    events = collections.defaultdict(list)
+    for name in ("_pull", "_period", "_delta", "_merge"):
+        setattr(runner, name, _timed(events, name, getattr(runner, name)))
+    torch.cuda.synchronize()
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    sess.fit(ASYNC_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    loss1 = global_loss()
+    ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in events.items()}
+    if launches["fused_adamw"] != 11 * TRAIN_H * periods:
+        raise RuntimeError(f"async_train: fused_adamw launched "
+                           f"{launches['fused_adamw']} times, want "
+                           f"{11 * TRAIN_H * periods}")
+    hist = sorted(sess.history, key=lambda h: h["t_end"])
+    losses = [h["loss"] for h in hist]
+    if not (all(math.isfinite(x) for x in losses + [loss0, loss1])
+            and losses[-1] < losses[0] and loss1 < loss0):
+        raise RuntimeError(f"async_train: losses {losses}, global "
+                           f"{loss0} -> {loss1}")
+    tokens = np.random.default_rng(9).integers(0, TRAIN_MODEL.vocab, (2, 8))
+    generated = sess.serve().generate(tokens, 4)
+    if generated.shape != (2, 4):
+        raise RuntimeError(f"async_train serve: {generated.shape}")
+    pull_delta = [a + b for a, b in zip(ms["_pull"], ms["_delta"])]
+    return {
+        "phase": "async_train", "algo": job.algo, "arch": TRAIN_MODEL.name,
+        "layers": TRAIN_LAYERS, "d_model": TRAIN_MODEL.d_model,
+        "reduced": {"n_layers": "40 -> 8", "workers": "8 -> 4"},
+        "dtype": TRAIN_MODEL.param_dtype, "workers": job.workers,
+        "H": TRAIN_H, "batch_per_worker": TRAIN_B, "seq": TRAIN_S,
+        "steps": ASYNC_TRAIN_STEPS, "period_ops": periods,
+        "merges": runner.server.version,
+        "staleness_hist": runner.server.staleness_hist,
+        "wall_s": wall,
+        "ms_per_worker_step": statistics.median(ms["_period"]) / TRAIN_H,
+        "ms_per_worker_step_all": [t / TRAIN_H for t in ms["_period"]],
+        "ms_per_merge": statistics.median(ms["_merge"]),
+        "ms_per_merge_all": ms["_merge"],
+        "ms_per_pull_plus_delta": statistics.median(pull_delta),
+        "ms_per_pull": statistics.median(ms["_pull"]),
+        "ms_per_delta": statistics.median(ms["_delta"]),
+        "reckoned_bytes": reckoned,
+        "peak_device_bytes": peak, "reserved_device_bytes": reserved,
+        "history_first_loss": losses[0], "history_last_loss": losses[-1],
+        "global_model_loss_before": loss0, "global_model_loss_after": loss1,
+        "launches": launches, "serve_tokens": generated.tolist(),
+    }
+
+
 def ptxas(source: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel compiled
     from ``csrc/<source>.cu``, from ``nvcc -Xptxas -v`` in this run's
@@ -1702,6 +2156,16 @@ def main() -> int:
     del model, params
     _free()
     rows += kernel_rows([ssd], result["launches"])
+
+    emit(sim())
+    emit(async_reference())
+    _free()
+    result = async_train()
+    emit(result)
+    _free()
+    for row in rows:            # the async path's launches of its kernel
+        if row["name"] == "fused_adamw":
+            row["launches_async_train"] = result["launches"]["fused_adamw"]
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,6 +1,6 @@
 """Declarative Session facade: one object from job spec to trained model.
 
-Counterpart of ``repro.api.session`` in sync mode::
+Counterpart of ``repro.api.session``::
 
     from repro_torch.api import JobConfig, Session
 
@@ -12,6 +12,7 @@ Counterpart of ``repro.api.session`` in sync mode::
 
     engine = sess.serve()              # a ServeEngine over worker 0
     engine.generate(tokens, 16)
+    sess.simulate("churn")             # replay the plan through SimNet
 
 Everything is lazy: ``.plan`` / ``.profile()`` work without ever building
 training state, and ``.fit`` builds the runner on first call.  Training
@@ -20,10 +21,13 @@ and serving run on the GPU unless the session is made with
 saves every ``ckpt_every`` steps and restarts from the last checkpoint
 after a failure; :meth:`Session.restore` resumes a session from one.
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item: the async two-tier runtime (``async_mode`` or an ``async_runtime``
-strategy such as ``hier-async``; queue A item 10) and
-:meth:`Session.simulate` (SimNet, the same item).
+With ``async_mode`` or an ``async_runtime`` strategy (``hier-async``)
+``fit`` runs the async two-tier runtime (:mod:`repro_torch.hier`):
+workers train whole periods on their own virtual clocks and push
+layer-wise deltas to a server tier that merges them with staleness-aware
+momentum; the trained artifact is the global model.
+:meth:`Session.simulate` replays the plan through SimNet
+(:mod:`repro_torch.sim`) without building any training state.
 """
 
 from __future__ import annotations
@@ -51,8 +55,7 @@ from .registry import get_strategy
 
 __all__ = ["JobConfig", "Session", "InferenceSession"]
 
-_ASYNC_TODO = ("the async two-tier runtime is not ported to repro_torch "
-               "yet (ROADMAP.md queue A item 10)")
+Tree = Any
 
 
 @dataclass(frozen=True)
@@ -89,7 +92,11 @@ class JobConfig:
     period_exec: str = "pipeline"
     prefetch_depth: int = 1
     prefetch_background: bool = False
-    # asynchronous two-tier execution (not ported: ROADMAP.md A10)
+    # asynchronous two-tier execution (repro_torch.hier): workers run
+    # H-step periods on their own clocks and push layer-wise deltas to a
+    # server tier that merges them with staleness-aware momentum — no
+    # period-boundary barrier.  Also switched on by strategies that set
+    # ``async_runtime`` (e.g. ``algo="hier-async"``).
     async_mode: bool = False
     merge_rule: str = "halos"          # "halos" | "delayed-nesterov"
     staleness_beta: float = 0.9
@@ -109,15 +116,27 @@ class Session:
     would otherwise build (a custom model with ``layer_costs`` /
     ``unit_layout`` / ``loss``, or another data source with
     ``batch(step)``; ``ckpt`` a :class:`CheckpointManager` in place of
-    one over ``cfg.ckpt_dir``).  ``device`` is where training runs: the
-    GPU by default (raising without one), the CPU only when asked for.
+    one over ``cfg.ckpt_dir``).  ``params`` (an unstacked tree, e.g. the
+    JAX package's parameters through
+    ``repro_torch.convert.params_from_numpy``) replaces the initial
+    parameters ``model.init`` would draw from ``cfg.seed``.  ``device``
+    is where training runs: the GPU by default (raising without one),
+    the CPU only when asked for.
+
+    In async mode :attr:`state` holds the global model broadcast to the
+    worker-stacked view, with no optimizer state: each worker's state
+    lives in the runner (the reference also keeps a W-worker initial
+    state there, which at full width would cost a fourth copy of the
+    workers' states).
     """
 
     def __init__(self, cfg: JobConfig, *, model: Any = None,
                  data: Any = None, ckpt: CheckpointManager | None = None,
+                 params: Tree | None = None,
                  device: str | torch.device | None = None):
         self.cfg = cfg
         self._ckpt = ckpt
+        self._params = params
         self.device = resolve_device(device)
         self.strategy = get_strategy(cfg.algo)
         self._model = model
@@ -126,7 +145,7 @@ class Session:
         self._profile: LayerProfile | None = None
         self._plan: SyncPlan | None = None
         self._opt = None
-        self._runner: Runner | None = None
+        self._runner: Any = None            # Runner or AsyncHierRunner
         self._state: TrainState | None = None
         self._step = 0
         self._engines: dict[tuple[EngineConfig, int], ServeEngine] = {}
@@ -183,11 +202,40 @@ class Session:
             base, policy=self.strategy.sync_policy(base), compress=None,
             outer=False)
 
+    # ----------------------------------------------------------- async parts
     @property
     def use_async(self) -> bool:
-        """Whether training asks for the async two-tier runtime."""
+        """Whether training runs on the async two-tier runtime."""
         return bool(self.cfg.async_mode
                     or getattr(self.strategy, "async_runtime", False))
+
+    @property
+    def merge_config(self):
+        from ..hier import MergeConfig
+        cfg = self.cfg
+        return MergeConfig(rule=cfg.merge_rule, lr=cfg.merge_lr,
+                           momentum=cfg.merge_momentum,
+                           staleness_beta=cfg.staleness_beta,
+                           max_staleness=cfg.max_staleness)
+
+    @property
+    def async_config(self):
+        from ..hier import AsyncConfig
+        return AsyncConfig(pushes_per_merge=self.cfg.pushes_per_merge,
+                           merge=self.merge_config)
+
+    def _static_scenario(self):
+        """The implicit static single-DC scenario a plain async ``fit``
+        runs against (the JobConfig link, no events)."""
+        from ..sim.network import LinkSpec
+        from ..sim.scenarios import Scenario
+        cfg = self.cfg
+        return Scenario(
+            name="static", description="static cluster from JobConfig",
+            n_workers=cfg.workers, n_datacenters=1,
+            intra=LinkSpec(bandwidth=cfg.bandwidth, latency=cfg.latency,
+                           jitter=0.0),
+            inter=None, drift={}, events=(), periods=1, seed=cfg.seed)
 
     @property
     def state(self) -> TrainState:
@@ -199,7 +247,9 @@ class Session:
         return self._runner.history if self._runner is not None else []
 
     @property
-    def runner(self) -> Runner:
+    def runner(self):
+        """The :class:`Runner` (sync) or
+        :class:`~repro_torch.hier.AsyncHierRunner` (async)."""
         self._ensure_built()
         return self._runner
 
@@ -215,8 +265,6 @@ class Session:
     def _ensure_built(self) -> None:
         if self._runner is not None:
             return
-        if self.use_async:
-            raise NotImplementedError(_ASYNC_TODO)
         cfg = self.cfg
         scfg = self.step_config
         opt_kw = dict(lr=cfg.lr, warmup_steps=cfg.warmup_steps,
@@ -228,9 +276,27 @@ class Session:
             self._data = self._make_data()
         if self._ckpt is None and cfg.ckpt_dir:
             self._ckpt = CheckpointManager(cfg.ckpt_dir)
+        if self.use_async:
+            from ..hier import AsyncHierRunner, AsyncRunnerConfig
+            self._runner = AsyncHierRunner(
+                self.model, self._opt, self.strategy, self._data,
+                profile=self.profile(), scenario=self._static_scenario(),
+                H=cfg.period, step_cfg=scfg,
+                run_cfg=AsyncRunnerConfig(
+                    async_cfg=self.async_config,
+                    ckpt_every_merges=(cfg.ckpt_every
+                                       if self._ckpt is not None else 0),
+                    fill_mode=cfg.fill_mode),
+                ckpt=self._ckpt, seed=cfg.seed, params=self._params,
+                device=self.device)
+            self._state = TrainState(
+                self._runner.stacked_params(cfg.workers), None,
+                torch.zeros((), dtype=torch.int32, device=self.device))
+            return
         gen = torch.Generator(self.device).manual_seed(cfg.seed)
         self._state = init_train_state(self.model, self._opt, gen,
-                                       cfg.workers, cfg=scfg)
+                                       cfg.workers, cfg=scfg,
+                                       params=self._params)
         self._runner = Runner(self.model, self._opt, self.plan, self._data,
                               ckpt=self._ckpt, step_cfg=scfg,
                               run_cfg=RunnerConfig(
@@ -249,8 +315,28 @@ class Session:
         one period ahead, metrics drained every ``log_every`` periods —
         and partial periods (a ``replan()`` landing mid-period) on the
         per-step path.  ``fused_period=False`` forces the per-step path.
+
+        Under the async runtime (``async_mode`` or an ``async_runtime``
+        strategy like ``hier-async``) ``steps`` must be a whole number
+        of periods; workers run them on their own virtual clocks and the
+        trained artifact is the global server model, broadcast back into
+        the worker-stacked ``state`` view for ``serve()``.  The async op
+        log is a deterministic function of the total period count, so a
+        session runs exactly one async timeline — call ``fit`` once (or,
+        after :meth:`restore`, once more with the same total).
         """
         self._ensure_built()
+        if self.use_async:
+            H = self.cfg.period
+            if steps % H:
+                raise ValueError(
+                    f"async fit advances whole periods: steps={steps} is "
+                    f"not a multiple of H={H}")
+            self._runner.run((self._step + steps) // H)
+            self._step += steps
+            self._state = self._state._replace(
+                params=self._runner.stacked_params(self.cfg.workers))
+            return self
         self._state = self._runner.run(self._state, steps,
                                        start_step=self._step)
         self._step += steps
@@ -259,11 +345,21 @@ class Session:
     def restore(self, step: int | None = None) -> int:
         """Resume from a checkpoint of this session's manager (the latest
         by default): the state is loaded in place and ``fit`` continues
-        from its step, which is returned."""
+        from its step, which is returned.
+
+        In async mode the runner restores its merge-boundary checkpoint
+        (workers, server, in-flight deltas, op cursor) and the global
+        version is returned; ``fit`` with the interrupted run's total
+        then replays the rest of its timeline."""
         self._ensure_built()
         if self._ckpt is None:
             raise ValueError("restore() needs a session made with ckpt_dir "
                              "or ckpt=")
+        if self.use_async:
+            version = self._runner.restore(step)
+            self._state = self._state._replace(
+                params=self._runner.stacked_params(self.cfg.workers))
+            return version
         self._step, _, _ = self._ckpt.restore(self._state, step=step,
                                               in_place=True)
         return self._step
@@ -290,6 +386,12 @@ class Session:
                          ("algo", algo), ("fill_mode", fill_mode)):
             if val is not None:
                 updates[key] = val
+        if self._runner is not None and self.use_async:
+            raise ValueError(
+                "replan() is not supported on a running async session: "
+                "the op-log replay pins one timeline.  Express membership "
+                "and bandwidth changes as scenario events instead "
+                "(WorkerJoin/WorkerLeave/BandwidthDrift).")
         old_workers = self.cfg.workers
         old_strategy = self.strategy
         workers_changed = workers is not None and workers != old_workers
@@ -354,6 +456,8 @@ class Session:
         key = (cfg, worker)
         if self._state is not None:
             params = worker_unstack(self._state.params, worker)
+        elif self._params is not None:
+            params = tree_map(lambda x: x.to(self.device), self._params)
         else:       # the initial parameters, the ones fit() starts from
             params = self.model.init(
                 torch.Generator(self.device).manual_seed(self.cfg.seed))
@@ -372,12 +476,74 @@ class Session:
             engine.reset(params=params)
         return engine
 
-    # --------------------------------------------------- not ported yet
-    def simulate(self, *args, **kwargs):
-        """SimNet replay of the schedule: not ported yet."""
-        raise NotImplementedError(
-            "Session.simulate (SimNet) is not ported to repro_torch yet "
-            "(ROADMAP.md queue A item 10)")
+    # ----------------------------------------------------------- simulation
+    def simulate(self, scenario, *, periods: int | None = None,
+                 replan: bool = True, n_channels: int = 1,
+                 profile: LayerProfile | None = None,
+                 mode: str | None = None):
+        """Replay this job's schedule through a virtual geo-cluster.
+
+        ``scenario`` is a :class:`repro_torch.sim.Scenario` or a library
+        name (``"drifting-bandwidth"``, ``"churn"``, ...).  Pure
+        analysis: no training state is built.  The strategy's plan is
+        solved against the scenario's network at t=0 and replayed by
+        :class:`repro_torch.sim.SimExecutor`; with ``replan=True`` (the
+        default) every schedule-relevant event — bandwidth drift, link
+        degradation, elastic join/leave — triggers a re-solve at the
+        next period boundary, exactly like a live ``.replan()`` call.
+
+        ``mode`` picks the execution model: ``"sync"`` replays the
+        barriered period executor, ``"async"`` the two-tier
+        :class:`repro_torch.hier.AsyncSimExecutor` (per-worker virtual
+        clocks, staleness-aware merges; ``replan``/``n_channels`` don't
+        apply).  Default follows the session: async when
+        :attr:`use_async`.
+
+        ``profile`` substitutes an external :class:`LayerProfile` for the
+        model-derived one (e.g. a ``measured_profile`` of the card).
+
+        Returns a :class:`repro_torch.sim.SimReport` (trace + plan
+        history).
+        """
+        from ..sim import (REPLAN_EVENTS, SimExecutor, SimReport,
+                           get_scenario, prepare_run)
+        if isinstance(scenario, str):
+            scenario = get_scenario(scenario)
+        base = self.profile() if profile is None else profile
+        if mode is None:
+            mode = "async" if self.use_async else "sync"
+        if mode not in ("sync", "async"):
+            raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
+        cluster, plan = prepare_run(scenario, self.strategy,
+                                    self.cfg.period, base,
+                                    fill_mode=self.cfg.fill_mode)
+        if mode == "async":
+            from ..hier import AsyncSimExecutor
+            ex = AsyncSimExecutor(base, plan, cluster,
+                                  cfg=self.async_config)
+            trace = ex.run(periods if periods is not None
+                           else scenario.periods)
+            return SimReport(scenario=scenario.name, trace=trace,
+                             plans=[(0, plan)])
+        ex = SimExecutor(base, plan, cluster, n_channels=n_channels)
+        plans = [(0, plan)]
+
+        def on_events(executor, fired):
+            if not replan or not any(isinstance(e, REPLAN_EVENTS)
+                                     for e in fired):
+                return None
+            eff = cluster.effective_profile(base, executor.clock)
+            new_plan = self.strategy.build_plan(
+                eff, executor.plan.H, fill_mode=self.cfg.fill_mode)
+            if new_plan.fingerprint() == executor.plan.fingerprint():
+                return None
+            plans.append((executor.iteration // executor.plan.H,
+                          new_plan))
+            return new_plan
+
+        trace = ex.run(periods if periods is not None else scenario.periods,
+                       on_events=on_events)
+        return SimReport(scenario=scenario.name, trace=trace, plans=plans)
 
 
 class InferenceSession:

@@ -149,13 +149,13 @@ class DreamDDPInt8(DreamDDP):
 class HierAsync(DreamDDP):
     """DreamDDP schedule on the async two-tier runtime (no barriers).
 
-    The plan's per-phase unit groups become the push granularity of the
-    reference's ``repro.hier.AsyncHierRunner``: workers run whole periods
+    The plan's per-phase unit groups become the push granularity of
+    :class:`repro_torch.hier.AsyncHierRunner`: workers run whole periods
     locally and stream layer-wise deltas to the server tier, which
-    merges them with staleness-aware momentum.  The plan is pure data and
-    builds here; training with ``async_runtime`` raises in the port's
-    :class:`~repro_torch.api.session.Session` until the async runtime is
-    ported (ROADMAP.md queue A item 10).
+    merges them with staleness-aware momentum.  ``async_runtime`` makes
+    :class:`~repro_torch.api.session.Session` pick the async runner and
+    :meth:`~repro_torch.api.session.Session.simulate` default to
+    ``mode="async"``.
     """
 
     name: str = "hier-async"

@@ -20,7 +20,8 @@ from .partial_sync import (UnitEntry, UnitLayout, contiguous_ranges,
 from .plans import (ALGOS, SyncPlan, build_plan, local_plan,
                     plan_from_partition)
 from .profiler import (A6000_CLUSTER, GEO_WAN, V5E, HardwareSpec, LayerCost,
-                       LayerProfile, analytic_profile, ring_allreduce_time)
+                       LayerProfile, analytic_profile, measured_profile,
+                       ring_allreduce_time)
 from .schedule import (ScheduleResult, SearchStats, brute_force_count,
                        brute_force_schedule, dreamddp_schedule, enp_schedule)
 from .sync_policies import (Int8EFSync, MeanSync, OuterOptSync, SyncPolicy,

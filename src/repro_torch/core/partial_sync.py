@@ -163,7 +163,8 @@ def tree_unit_map(fn, trees: Sequence[Tree], unit_ids: Sequence[int],
     and write the results back **in place**.
 
     ``fn(*slices)`` receives one tensor slice per tree and returns the
-    same number of updated slices.  Plain (unstacked) groups pass whole
+    same number of updated slices; a ``None`` in place of a slice leaves
+    that tree's slice as it is (``fn`` may update it in place).  Plain (unstacked) groups pass whole
     leaves; layer-stacked groups pass contiguous ``[lo:hi)`` slices along
     ``axis`` (0 for unstacked trees, 1 for worker-stacked trees).  Leaves
     outside ``unit_ids`` are untouched.  Returns ``trees``.
@@ -189,7 +190,8 @@ def tree_unit_map(fn, trees: Sequence[Tree], unit_ids: Sequence[int],
                     raise ValueError(f"fn returned {len(new)} slices for "
                                      f"{n} trees")
                 for x, val in zip(xs, new, strict=True):
-                    x[ix].copy_(val)
+                    if val is not None:
+                        x[ix].copy_(val)
     return tuple(trees)
 
 

@@ -222,7 +222,7 @@ def local_plan(n_units: int) -> SyncPlan:
 def local_period_plan(n_units: int, H: int) -> SyncPlan:
     """An H-phase plan that performs no in-step synchronization at all.
 
-    The async hierarchical runtime (``repro.hier``; not ported) executes whole
+    The async hierarchical runtime (:mod:`repro_torch.hier`) executes whole
     periods of pure local steps per worker — reconciliation happens
     through the local/global server tier between periods, not inside the
     step — so every phase's unit set is empty.  ``phase_segments()``

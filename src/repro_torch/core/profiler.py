@@ -7,11 +7,13 @@ DreamDDP's scheduler consumes per-layer backward times ``t_BP^l`` and
 parameter-synchronization times ``t_COMM^l``.  :func:`analytic_profile`
 derives them from per-layer FLOP/byte counts and a :class:`HardwareSpec`
 roofline; the defaults are the reference's TPU v5e planning constants,
-inputs of the planning model rather than measurements of the port.  The
-JAX package's ``measured_profile`` (per-layer timing on the attached
-backend) is not ported yet (ROADMAP.md queue A item 2).
+inputs of the planning model rather than measurements of the port, and
+``Session`` plans from them so that the port's plans equal the JAX
+package's.  :func:`measured_profile` times per-layer forward+backward
+thunks on the attached device instead (an explicit opt-in, e.g. for
+``Session.simulate(profile=...)``).
 
-It produces a :class:`LayerProfile`, the scheduler's only input — so the
+Both produce a :class:`LayerProfile`, the scheduler's only input — so the
 schedule is *data*, recomputable when bandwidth changes (paper §6 limitation:
 we expose :meth:`LayerProfile.with_bandwidth` for cheap re-profiling).
 """
@@ -20,14 +22,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Callable, Sequence
 
 __all__ = [
     "HardwareSpec",
     "LayerCost",
     "LayerProfile",
     "analytic_profile",
+    "measured_profile",
     "ring_allreduce_time",
     "V5E",
     "A6000_CLUSTER",
@@ -188,5 +192,38 @@ def analytic_profile(
             flops_bwd=flops_fwd * hw.bwd_fwd_ratio,
             param_bytes=pbytes, t_fp=t_fp, t_bp=t_bp,
             t_comm=ring_allreduce_time(pbytes, hw),
+        ))
+    return LayerProfile(layers, hw)
+
+
+def measured_profile(
+    layer_fns: Sequence[tuple[str, Callable[[], object], float]],
+    hw: HardwareSpec,
+    *,
+    warmup: int = 2,
+    iters: int = 5,
+) -> LayerProfile:
+    """Time per-layer fwd+bwd thunks on the attached device.
+
+    ``layer_fns`` is ``(name, thunk, param_bytes)``; each thunk runs one
+    fwd+bwd of that layer and synchronizes its device before it returns
+    (``torch.cuda.synchronize()`` on the GPU), so the wall time around it
+    is the device's.  We split the measured time into t_fp/t_bp with the
+    spec's ``bwd_fwd_ratio``; t_comm is still model-derived (measuring a
+    WAN link is deployment-specific).
+    """
+    layers = []
+    for name, thunk, param_bytes in layer_fns:
+        for _ in range(warmup):
+            thunk()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            thunk()
+        dt = (time.perf_counter() - t0) / iters
+        r = hw.bwd_fwd_ratio
+        t_fp = dt / (1.0 + r)
+        layers.append(LayerCost(
+            name=name, param_bytes=param_bytes, t_fp=t_fp, t_bp=t_fp * r,
+            t_comm=ring_allreduce_time(param_bytes, hw),
         ))
     return LayerProfile(layers, hw)

@@ -15,8 +15,9 @@ Usage::
 ``--period-exec compiled`` runs each period as one CUDA graph replay (the
 same period body without a graph on the CPU); ``--ckpt-dir`` saves a
 checkpoint every 200 steps there and restarts from the last one after a
-failure.  ``--async`` (not ported yet) is accepted and makes ``Session``
-raise, naming the ROADMAP item.
+failure.  ``--async`` trains on the async two-tier runtime
+(``repro_torch.hier``; ``--merge-rule``, ``--staleness-beta``) and
+rounds ``--steps`` down to whole periods.
 """
 
 from __future__ import annotations
@@ -60,13 +61,21 @@ def main(argv=None) -> int:
                          "CUDA graph replay per period)")
     ap.add_argument("--async", dest="async_mode",
                     action=argparse.BooleanOptionalAction, default=False,
-                    help="asynchronous two-tier runtime (not ported yet)")
-    ap.add_argument("--staleness-beta", type=float, default=0.9)
+                    help="asynchronous two-tier runtime (repro_torch.hier): "
+                         "workers run periods on their own clocks and "
+                         "push layer-wise deltas to a server tier — no "
+                         "period-boundary barrier")
+    ap.add_argument("--staleness-beta", type=float, default=0.9,
+                    help="async merge: per-version staleness decay "
+                         "(scale = beta ** min(tau, max_staleness))")
     ap.add_argument("--merge-rule", default="halos",
-                    choices=("halos", "delayed-nesterov"))
+                    choices=("halos", "delayed-nesterov"),
+                    help="async merge rule: HALoS staleness-aware "
+                         "Nesterov momentum, or delayed-Nesterov "
+                         "(buffered momentum every N merges)")
     ap.add_argument("--dry-run", action="store_true",
-                    help="resolve the model and plan, print them, and exit "
-                         "without training")
+                    help="resolve the model and plan (and async config), "
+                         "print them, and exit without training")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run on "
@@ -102,12 +111,21 @@ def main(argv=None) -> int:
     print(f"plan: {plan.meta.get('partition_counts')} "
           f"extra_syncs={plan.meta.get('extra_syncs')} "
           f"fingerprint={plan.fingerprint()}")
+    if sess.use_async:
+        mc = sess.merge_config.resolve(args.workers)
+        print(f"merge: rule={mc.rule} lr={mc.lr:.4g} "
+              f"momentum={mc.momentum} beta={mc.staleness_beta} "
+              f"max_staleness={mc.max_staleness}")
     if args.dry_run:
         print("dry run: configuration resolved, exiting before training")
         return 0
 
+    steps = args.steps
+    if sess.use_async and steps % args.period:
+        steps = max(args.period, steps - steps % args.period)
+        print(f"async fit advances whole periods: running {steps} steps")
     t0 = time.time()
-    sess.fit(args.steps)
+    sess.fit(steps)
     dt = time.time() - t0
     losses = [h["loss"] for h in sess.history]
     data = sess.runner.data

@@ -81,11 +81,16 @@ class StepConfig:
 
 
 def init_train_state(model, optimizer, generator: torch.Generator,
-                     n_workers: int, *, cfg: StepConfig = StepConfig()
-                     ) -> TrainState:
+                     n_workers: int, *, cfg: StepConfig = StepConfig(),
+                     params: Tree | None = None) -> TrainState:
     """Identical initial replicas (workers start at a sync point), on
-    ``generator``'s device."""
-    params = worker_stack(model.init(generator), n_workers)
+    ``generator``'s device: ``model.init(generator)``, or copies of
+    ``params`` (an unstacked tree, e.g. the JAX package's parameters
+    through ``repro_torch.convert.params_from_numpy``)."""
+    if params is None:
+        params = model.init(generator)
+    params = worker_stack(tree_map(lambda x: x.to(generator.device),
+                                   params), n_workers)
     opt_state = optimizer.init(params)
     ef, outer = resolve_policy(cfg).init_state(params)
     step = torch.zeros((), dtype=torch.int32, device=generator.device)

@@ -319,10 +319,14 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch.api, repro_torch.launch.train\n"
         "import repro_torch.core, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.parallel, repro_torch.runtime\n"
-        "import repro_torch.checkpoint\n"
+        "import repro_torch.checkpoint, repro_torch.sim, repro_torch.hier\n"
+        "import repro_torch.sim.__main__\n"
         "from repro_torch.api import JobConfig, Session\n"
         "Session(JobConfig(workers=2, seq=8, batch_per_worker=1),"
         " device='cpu').fit(2)\n"
+        "s = Session(JobConfig(algo='hier-async', workers=2, period=2,"
+        " seq=8, batch_per_worker=1), device='cpu')\n"
+        "s.fit(2); s.simulate('churn')\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
         "m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

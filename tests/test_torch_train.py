@@ -31,8 +31,10 @@
   capture would break on).
 * **Entry points** — the default ``Session(JobConfig()).fit(10)`` (granite
   smoke, dreamddp, 8 workers, H=5, adam, fused pipeline) on the CPU, the
-  GPU default raising without a card, the CLI, and the parts not ported
-  yet raising ``NotImplementedError``.
+  GPU default raising without a card, the CLI, and what is not ported
+  yet (other architectures) raising.  The async runtime and SimNet,
+  ported since, are held to the JAX package in ``tests/test_torch_hier.py``
+  and ``tests/test_torch_sim.py``.
 
 The card's twins (CUDA graphs, bitwise against ``pipeline``) are in
 ``tests/test_torch_train_graphs.py``.
@@ -511,12 +513,16 @@ def test_replan_reshards_workers_and_keeps_training():
 
 def test_what_is_not_ported_raises():
     model = DecoderLM(LMConfig(**_TINY))
-    with pytest.raises(NotImplementedError, match="A item 10"):
-        Session(JobConfig(algo="hier-async"), model=model,
-                device="cpu").fit(5)
+    # the async runtime and SimNet no longer raise: hier-async trains
+    # whole periods (a partial one is refused) and simulate replays
+    sess = Session(JobConfig(**_job("hier-async")), model=model,
+                   device="cpu")
+    with pytest.raises(ValueError, match="whole periods"):
+        sess.fit(3)
     sess = Session(JobConfig(**_job("dreamddp")), model=model, device="cpu")
-    with pytest.raises(NotImplementedError, match="A item 10"):
-        sess.simulate("churn")
+    assert sess.simulate("churn").trace.n_periods > 0
+    with pytest.raises(KeyError, match="ROADMAP"):
+        Session(JobConfig(arch="qwen3-1.7b"), device="cpu").model
     from repro_torch.serve import ServeEngine
     assert isinstance(sess.serve(), ServeEngine)
     assert Session(JobConfig(algo="hier-2tier"), model=model,
