@@ -140,9 +140,35 @@ code is non-zero):
    exactly 11 x H per ``PeriodOp``; then ``Session.serve().generate``
    on the broadcast global model.
 
-Then one ``{"kernels": [...]}`` line (each kernel's cases, launches on
-its path — fused AdamW's on the async path too, as
-``launches_async_train`` — and ptxas's registers, shared memory and
+18. ``kernel`` (MoE geometry) — the paged kernel (8 slots, 32/4 heads,
+   head_dim 128, 34 blocks, kv_len <= 544) and the flash kernel (b 2 x
+   s 256 and b 1 x s 512, 32/4 heads, head_dim 128, causal; SDPA with
+   ``enable_gqa`` as the library time) against their plain versions,
+   as in phase 3.
+19. ``moe_reference`` — qwen3-moe SMOKE (float32) on the card (flash
+   prefill, paged decode) against the CPU (plain versions), same
+   weights: logits of the full forward, of a prefill and of four paged
+   decode steps, and the loss, within ``MOE_REF_TOL``; every MoE call's
+   top-k routing equal, a flip accepted only below ``MOE_FLIP_MARGIN``
+   and reported with its margin; the engine's greedy streams on paged
+   and contiguous KV (graphs on the card) equal; a 4-step 2-worker
+   ``Session.fit`` from the same parameters: fingerprints equal, losses
+   within ``TRAIN_REF_TOL["dreamddp"]``, one fused AdamW launch a leaf
+   a step.
+20. ``moe_serve`` — qwen3-moe-30b-a3b at published widths and full
+   depth (48 layers, 128 experts top-8, 30,532,122,624 random bf16
+   parameters from a seeded generator) serves the serve phase's 12
+   requests through the same engine (paged, 8 slots, decode block 8,
+   graphs), launches counted as in phase 6 (flash 48 per prefill call,
+   paged 48 x ``decode_block`` a replay); beside the ms per tick, the
+   tick's byte bound (every weight but the embedding table: the dense
+   dispatch runs every expert) and its share; then ``moe_profile``,
+   its decode blocks under ``torch.profiler``.
+
+Then one ``{"kernels": [...]}`` line (each kernel's cases, the path
+whose run gave its launches — ``serve``, ``train``, ``mamba2_serve``,
+``moe_serve`` — fused AdamW's on the async path too, as
+``launches_async_train``, and ptxas's registers, shared memory and
 spills for its source), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -150,6 +176,7 @@ spills for its source), the ``nvidia-smi`` line, and last ``{"ok": true, "device
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -169,7 +196,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api import JobConfig, Session  # noqa: E402
-from repro_torch.configs import granite_3_2b, mamba2_780m  # noqa: E402
+from repro_torch.configs import (granite_3_2b, mamba2_780m,  # noqa: E402
+                                 qwen3_moe_30b_a3b)
 from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
                                            worker_unstack)
 from repro_torch.kernels import _build  # noqa: E402
@@ -185,6 +213,7 @@ from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
                                SamplingParams, ServeEngine)
+from repro_torch.serve.cache import prefill_scatter  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 3.35 TB/s,
@@ -278,11 +307,13 @@ def bound(bytes_moved: float, *work: tuple[float, torch.dtype]
 
 # ---------------------------------------------------------------- kernels
 
-def paged_case(dtype, *, mb, max_len, window=None, slots=8, seed=0):
-    """Decode at granite-3-2b width: ``slots`` slots, 32/8 heads,
-    head_dim 64, 16-token pages, ``mb`` blocks per slot, ragged kv_len up
-    to ``max_len`` (one slot at one page, the last at ``max_len``)."""
-    n_q, n_kv, hd, ps = 32, 8, 64, 16
+def paged_case(dtype, *, mb, max_len, window=None, slots=8, seed=0,
+               n_q=32, n_kv=8, hd=64):
+    """Decode at granite-3-2b width by default: ``slots`` slots, 32/8
+    heads, head_dim 64 (``n_q``/``n_kv``/``hd``: qwen3-moe's 32/4 and
+    128), 16-token pages, ``mb`` blocks per slot, ragged kv_len up to
+    ``max_len`` (one slot at one page, the last at ``max_len``)."""
+    ps = 16
     rng = np.random.default_rng(seed)
     n_pages = 1 + slots * mb
     kv_len = rng.integers(1, max_len + 1, size=slots)
@@ -307,15 +338,16 @@ def paged_case(dtype, *, mb, max_len, window=None, slots=8, seed=0):
               + 2 * tokens * n_kv * hd * es      # the K and V these need
               + bt.size * 4 + slots * 4)
     flops = 4.0 * n_q * hd * tokens              # QK^T and PV
-    shape = (f"slots {slots}, 32/8 heads, hd 64, page 16, max_blocks {mb}, "
-             f"kv_len <= {max_len}" + (f", window {window}" if window else ""))
+    shape = (f"slots {slots}, {n_q}/{n_kv} heads, hd {hd}, page 16, "
+             f"max_blocks {mb}, kv_len <= {max_len}"
+             + (f", window {window}" if window else ""))
     return args, {"window": window}, nbytes, flops, None, shape
 
 
-def flash_case(dtype, *, b, s, window=None, seed=1):
-    """Prefill at granite-3-2b width: 32/8 heads, head_dim 64, causal,
+def flash_case(dtype, *, b, s, window=None, seed=1, n_q=32, n_kv=8, hd=64):
+    """Prefill at granite-3-2b width by default: 32/8 heads, head_dim 64
+    (``n_q``/``n_kv``/``hd``: qwen3-moe's 32/4 and 128), causal,
     optionally with a local window."""
-    n_q, n_kv, hd = 32, 8, 64
     rng = np.random.default_rng(seed)
 
     def rand(*shape):
@@ -341,7 +373,7 @@ def flash_case(dtype, *, b, s, window=None, seed=1):
             qt, kt, vt, attn_mask=mask, is_causal=mask is None,
             enable_gqa=True)
 
-    shape = (f"b {b}, s {s}, 32/8 heads, hd 64, causal"
+    shape = (f"b {b}, s {s}, {n_q}/{n_kv} heads, hd {hd}, causal"
              + (f", window {window}" if window else ""))
     return (q, k, v), {"causal": True, "window": window}, nbytes, flops, \
         library, shape
@@ -354,12 +386,13 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float() if t.is_floating_point() else t
 
 
-def check_kernel(name: str) -> dict:
-    """Every case in both dtypes: the kernel against its plain version in
-    float32 on the same input values, then the times and the bound."""
+def check_kernel(name: str, cases: list[dict] | None = None) -> dict:
+    """Every case (``KERNELS[name]["cases"]`` unless ``cases`` is given)
+    in both dtypes: the kernel against its plain version in float32 on
+    the same input values, then the times and the bound."""
     fn = KERNELS[name]["fn"]
     checks = []
-    for geometry in KERNELS[name]["cases"]:
+    for geometry in cases or KERNELS[name]["cases"]:
         for dtype in DTYPES:
             args, kw, nbytes, flops, library, shape = \
                 CASES[name](dtype, **geometry)
@@ -516,6 +549,10 @@ def graph_check() -> dict:
 
 
 SERVE_LENS = (64, 64, 128, 128, 192, 256, 256, 320, 384, 384, 448, 512)
+# the serve phases' engine: 8 slots, paged KV in 16-token pages, decode
+# blocks of 8 ticks (one graph replay each)
+SERVE_ENGINE = EngineConfig(max_batch=8, max_seq=544, decode_block=8,
+                            kv_backend="paged", page_size=16)
 
 
 def serve_requests(vocab: int, eos_req: int | None = None,
@@ -618,7 +655,7 @@ def graph_numbers(engine) -> dict:
             "captured_launches": bs.captured_launches}
 
 
-def serve(model, params, engine_cfg) -> dict:
+def serve(model, params, engine_cfg, phase: str = "serve") -> dict:
     common, engine, launches = drive_serve(
         model, params, engine_cfg, serve_requests,
         {"flash_attention": flash_attention,
@@ -636,7 +673,7 @@ def serve(model, params, engine_cfg) -> dict:
             f"{common['replays']} replays of graphs holding {held}; want "
             f"{per_replay} a replay and none eager")
     return {
-        "phase": "serve", **common,
+        "phase": phase, **common,
         "peak_pages_in_use": engine.pool.peak_pages_in_use,
         "peak_kv_bytes": engine.pool.peak_kv_bytes(),
         "pool_bytes": engine.pool.kv_bytes(),
@@ -1640,7 +1677,7 @@ def block_thunks() -> list:
     positions = torch.arange(s, device="cuda").expand(b, s)
     x0 = torch.randn(b, s, d, generator=gen, device="cuda").to(cfg.dtype)
 
-    def attend(_i, p, h):
+    def attend(_group, _i, p, h):
         q, k, v = model._project_qkv(p, h, positions)
         out = gqa_attention(q, k, v, q_positions=positions,
                             kv_positions=positions, causal=True,
@@ -1660,7 +1697,7 @@ def block_thunks() -> list:
     blk = tree_leaves(p)
 
     def block_fwd(x, *_):
-        return model._block(attend, 0, p, x)
+        return model._block(attend, "blocks", "dense", 0, p, x)
 
     table = params["embed"]["table"].detach().requires_grad_()
     scale = params["head"]["norm"]["scale"].detach().requires_grad_()
@@ -2022,6 +2059,224 @@ def async_train() -> dict:
     }
 
 
+# ---------------------------------------------------------------- MoE
+
+# qwen3-moe-30b-a3b at published widths and full depth: 48 layers, 128
+# experts top-8 of width 768, 32/4 heads of width 128, bf16
+MOE_PARAMS = 30_532_122_624
+# the attention kernels at moe_serve's geometry (its max_seq 544 and
+# admission groups of b <= 2, prompts up to 512): 32/4 heads, width 128
+MOE_HEADS = {"n_q": 32, "n_kv": 4, "hd": 128}
+MOE_CASES = {
+    "paged_attention": [{"mb": 34, "max_len": 544, **MOE_HEADS}],
+    "flash_attention": [{"b": 2, "s": 256, **MOE_HEADS},
+                        {"b": 1, "s": 512, **MOE_HEADS}],
+}
+# moe_reference, card (kernels) against CPU (plain versions), float32
+# smoke: logits and loss within atol + rtol * |cpu| (summation order of
+# the float32 matmuls and of the attention kernels, <= 2e-5 a call)
+MOE_REF_TOL = (1e-4, 1e-4)
+# a layer's routing (its top-k experts) may differ between the card and
+# the CPU only where the k-th router probability exceeds the (k+1)-th by
+# less than this: 50x the ~2e-7 a float32 probability moves between the
+# two (a flip at a larger margin is a fault, not rounding)
+MOE_FLIP_MARGIN = 1e-5
+
+
+@contextlib.contextmanager
+def routing_record(store: list):
+    """Record each MoE layer's routing while the model runs outside a
+    graph: per token the top-k experts (sorted) and the margin between
+    the k-th and the (k+1)-th router score, on the host."""
+    from repro_torch.models import transformer
+    real = transformer.moe_apply
+
+    def recorded(p, cfg, x):
+        logits = x.float() @ p["router"]["w"]
+        scores = torch.softmax(logits, -1) if cfg.router == "softmax" \
+            else torch.sigmoid(logits)
+        top, idx = torch.topk(scores, cfg.top_k + 1, dim=-1)
+        store.append((idx[..., :cfg.top_k].sort(-1).values.cpu(),
+                      (top[..., cfg.top_k - 1] - top[..., cfg.top_k]).cpu()))
+        return real(p, cfg, x)
+
+    transformer.moe_apply = recorded
+    try:
+        yield
+    finally:
+        transformer.moe_apply = real
+
+
+def _paged_from_lanes(model, cache, page_size: int):
+    """A contiguous cache's lanes scattered into a fresh page pool (page
+    0 the trash page), lane i into pages ``1 + i * nb ...``; returns the
+    pool and its block tables."""
+    b, depth = cache["blocks"]["k"].shape[1:3]
+    nb = depth // page_size
+    dev = cache["blocks"]["k"].device
+    pages = model.init_paged_cache(1 + b * nb, page_size, device=dev)
+    bt = torch.arange(1, 1 + b * nb, dtype=torch.int32,
+                      device=dev).reshape(b, nb)
+    prefill_scatter(pages, cache, bt, page_size)
+    return pages, bt
+
+
+def _moe_direct(model, params, toks: np.ndarray, feed: np.ndarray,
+                device: str) -> tuple[dict, list]:
+    """The smoke model on ``device`` outside the engine: logits of the
+    full forward, the loss, a prefill (flash kernel on the card) and
+    ``feed.shape[1]`` paged decode steps (paged kernel on the card) on
+    the given tokens; with the routing of every MoE call."""
+    b, s = toks.shape
+    t = torch.from_numpy(toks).long().to(device)
+    routes: list = []
+    out = {}
+    with torch.no_grad(), routing_record(routes):
+        out["apply"] = model.apply(params, t)
+        out["loss"] = model.loss(params, {"tokens": t, "labels": t})
+        depth = s + feed.shape[1]
+        depth += (-depth) % 8
+        lg, cache = model.prefill(params, t, model.init_cache(
+            b, depth, device=device))
+        steps = [lg]
+        pages, bt = _paged_from_lanes(model, cache, 8)
+        active = torch.ones(b, dtype=torch.bool, device=device)
+        for i in range(feed.shape[1]):
+            tok = torch.from_numpy(feed[:, i:i + 1]).long().to(device)
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=device)
+            lg, pages = model.decode_step_paged(params, pages, tok, pos, bt,
+                                                active)
+            steps.append(lg)
+        out["prefill_decode"] = torch.cat(steps, 1)
+    return {k: v.float().cpu() for k, v in out.items()}, routes
+
+
+def moe_reference() -> dict:
+    """qwen3-moe SMOKE (float32), card (the flash and paged kernels, the
+    decode block as graph replays) against CPU (plain versions), same
+    weights: logits of the full forward, of a prefill and of four paged
+    decode steps, the loss, every MoE layer's routing (a flip accepted
+    only below ``MOE_FLIP_MARGIN``); greedy streams of the engine on
+    paged and contiguous KV; a 4-step 2-worker ``Session.fit`` from the
+    same parameters (fingerprints equal, losses within
+    ``TRAIN_REF_TOL["dreamddp"]``)."""
+    model = DecoderLM(qwen3_moe_30b_a3b.SMOKE)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    params = _to(cpu_params, "cuda")
+    vocab = model.cfg.vocab
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, vocab, (3, 37)).astype(np.int64)
+    feed = rng.integers(0, vocab, (3, 4)).astype(np.int64)
+    f0, p0 = flash_attention.launches, paged_attention.launches
+    card, card_routes = _moe_direct(model, params, toks, feed, "cuda")
+    if flash_attention.launches == f0 or paged_attention.launches == p0:
+        raise RuntimeError("moe_reference did not go through both kernels")
+    cpu, cpu_routes = _moe_direct(model, cpu_params, toks, feed, "cpu")
+    out = {"phase": "moe_reference", "logit_tol": MOE_REF_TOL}
+    for key in card:
+        err, excess = _max_excess(card[key], cpu[key], MOE_REF_TOL)
+        if excess > 0 or not torch.isfinite(card[key]).all():
+            raise RuntimeError(f"moe_reference {key}: differs by {err}")
+        out[f"max_abs_err_{key}"] = err
+    flips, min_margin = [], math.inf
+    for layer, ((ic, _), (ip, mp)) in enumerate(
+            zip(card_routes, cpu_routes, strict=True)):
+        min_margin = min(min_margin, mp.min().item())
+        differ = (ic != ip).any(-1)
+        for where in differ.nonzero().tolist():
+            margin = mp[tuple(where)].item()
+            flips.append({"call": layer, "token": where, "margin": margin})
+            if margin >= MOE_FLIP_MARGIN:
+                raise RuntimeError(f"moe_reference: routing flip at margin "
+                                   f"{margin} (limit {MOE_FLIP_MARGIN}): "
+                                   f"call {layer}, token {where}")
+    out.update({"moe_calls": len(cpu_routes), "routing_flips": flips,
+                "min_topk_margin": min_margin,
+                "flip_margin_limit": MOE_FLIP_MARGIN})
+
+    prompts = [rng.integers(0, vocab, n).tolist()
+               for n in (5, 9, 9, 14, 3, 20)]
+    budgets = (6, 4, 8, 3, 7, 5)
+    streams = {}
+    for backend in ("paged", "contiguous"):
+        cfg = EngineConfig(max_batch=4, max_seq=32, decode_block=4,
+                           kv_backend=backend, page_size=8)
+        got = ServeEngine(model, params, cfg, device="cuda").generate(
+            [Request(tokens=p, max_new_tokens=g)
+             for p, g in zip(prompts, budgets, strict=True)])
+        want = ServeEngine(model, cpu_params, cfg, device="cpu").generate(
+            [Request(tokens=p, max_new_tokens=g)
+             for p, g in zip(prompts, budgets, strict=True)])
+        a = [(c.tokens, c.finish_reason) for c in got]
+        b = [(c.tokens, c.finish_reason) for c in want]
+        if a != b:
+            raise RuntimeError(f"moe_reference {backend}: card {a} != cpu "
+                               f"{b}")
+        streams[backend] = sum(len(c.tokens) for c in got)
+    out["stream_tokens_equal"] = streams
+
+    job = JobConfig(arch="qwen3-moe-30b-a3b", smoke=True, workers=2,
+                    period=2, seq=32, batch_per_worker=2)
+    _reset_train_counts()
+    fit_card = Session(job, params=params, device="cuda").fit(4)
+    counts = _train_counts()
+    fit_cpu = Session(job, params=cpu_params, device="cpu").fit(4)
+    if fit_card.plan.fingerprint() != fit_cpu.plan.fingerprint():
+        raise RuntimeError("moe_reference: plan fingerprints differ")
+    lc = np.array([h["loss"] for h in fit_card.history])
+    lp = np.array([h["loss"] for h in fit_cpu.history])
+    loss_err = float(np.max(np.abs(lc - lp) / np.abs(lp)))
+    if not np.isfinite(lc).all() \
+            or loss_err > TRAIN_REF_TOL["dreamddp"]["loss_rtol"]:
+        raise RuntimeError(f"moe_reference fit: losses {lc} vs {lp}")
+    n_leaves = len(tree_leaves(params))
+    if counts["fused_adamw"] != n_leaves * 4:
+        raise RuntimeError(f"moe_reference fit: launches {counts}, want "
+                           f"{n_leaves} fused AdamW a step")
+    out["fit"] = {"steps": 4, "fingerprint": fit_card.plan.fingerprint(),
+                  "losses_card": lc.tolist(), "max_loss_rel_err": loss_err,
+                  "launches": counts}
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def moe_serve() -> tuple[dict, dict]:
+    """qwen3-moe-30b-a3b at published widths and full depth, random bf16
+    weights: the serve phase's requests and engine; then its decode
+    blocks under the profiler.  Returns (serve result, profile)."""
+    model = DecoderLM(qwen3_moe_30b_a3b.CONFIG)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n = count_params(params)
+    if not n == model.param_count() == MOE_PARAMS:
+        raise RuntimeError(f"qwen3-moe parameters: {n}, the config counts "
+                           f"{model.param_count()}, want {MOE_PARAMS}")
+    result = serve(model, params, SERVE_ENGINE, phase="moe_serve")
+    # what a tick must read: every weight but the embedding table (of
+    # which it reads 8 rows), every expert included (the dense dispatch
+    # runs each expert on its capacity slots); the KV read (at most the
+    # pool's 0.43 GB) left out
+    weight_bytes = sum(_nbytes(t) for t in tree_leaves(params)) \
+        - _nbytes(params["embed"]["table"])
+    expert_bytes = sum(_nbytes(params["blocks"]["mlp"][k])
+                       for k in ("gate", "up", "down"))
+    result.update({
+        "experts": model.cfg.moe.n_experts, "top_k": model.cfg.moe.top_k,
+        "tick_weight_bytes": weight_bytes,
+        "tick_expert_bytes": expert_bytes,
+        "bound_ms_per_tick": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "share_of_bound": weight_bytes / HBM_BYTES_PER_S * 1e3
+        / result["ms_per_decode_tick"],
+    })
+    profile = profile_decode(model, params, SERVE_ENGINE,
+                             phase="moe_profile")
+    del model, params
+    _free()
+    return result, profile
+
+
 def ptxas(source: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel compiled
     from ``csrc/<source>.cu``, from ``nvcc -Xptxas -v`` in this run's
@@ -2056,16 +2311,19 @@ def ptxas(source: str) -> list[dict]:
     return found
 
 
-def kernel_rows(kernels: list[dict], launches: dict) -> list[dict]:
+def kernel_rows(kernels: list[dict], launches: dict, path: str
+                ) -> list[dict]:
     """The kernels line's rows: each kernel's first check (its path's own
-    geometry and working dtype), its launches on the path's run, and
-    ptxas's registers, shared memory and spills for its source."""
+    geometry and working dtype), its launches on the path's run (the
+    phase named by ``path``), and ptxas's registers, shared memory and
+    spills for its source."""
     rows = []
     for k in kernels:
         main_row = k["checks"][0]
         rows.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "launches": launches[k["name"]],
+            "replaces": k["replaces"], "path": path,
+            "launches": launches[k["name"]],
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -2106,14 +2364,12 @@ def main() -> int:
     params = model.init(torch.Generator("cuda").manual_seed(0))
     if count_params(params) != model.param_count():
         raise RuntimeError("parameter count disagrees with the config")
-    engine_cfg = EngineConfig(max_batch=8, max_seq=544, decode_block=8,
-                              kv_backend="paged", page_size=16)
-    result = serve(model, params, engine_cfg)
+    result = serve(model, params, SERVE_ENGINE)
     emit(result)
-    emit(profile_decode(model, params, engine_cfg))
+    emit(profile_decode(model, params, SERVE_ENGINE))
     del model, params
     _free()
-    rows = kernel_rows(kernels, result["launches"])
+    rows = kernel_rows(kernels, result["launches"], "serve")
 
     k, where, reckoned = int8_plan()
     kernels = [check_adam(), *check_int8(k, where)]
@@ -2141,7 +2397,7 @@ def main() -> int:
     rows += kernel_rows(kernels, {
         "fused_adamw": plain["launches"]["fused_adamw"],
         "quantize_rows": int8["launches"]["quantize_rows"],
-        "dequantize_rows": int8["launches"]["dequantize_rows"]})
+        "dequantize_rows": int8["launches"]["dequantize_rows"]}, "train")
 
     ssd = check_ssd()
     emit(mamba2_reference())
@@ -2155,7 +2411,7 @@ def main() -> int:
                         mamba_requests(model.cfg.vocab), "mamba2_profile"))
     del model, params
     _free()
-    rows += kernel_rows([ssd], result["launches"])
+    rows += kernel_rows([ssd], result["launches"], "mamba2_serve")
 
     emit(sim())
     emit(async_reference())
@@ -2166,6 +2422,14 @@ def main() -> int:
     for row in rows:            # the async path's launches of its kernel
         if row["name"] == "fused_adamw":
             row["launches_async_train"] = result["launches"]["fused_adamw"]
+
+    kernels = [check_kernel(k, MOE_CASES[k]) for k in MOE_CASES]
+    emit(moe_reference())
+    _free()
+    result, profile = moe_serve()
+    emit(result)
+    emit(profile)
+    rows += kernel_rows(kernels, result["launches"], "moe_serve")
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,10 +1,10 @@
-"""PyTorch/CUDA port of the DreamDDP reproduction (serving slice).
+"""PyTorch/CUDA port of the DreamDDP reproduction.
 
 ``repro_torch`` sits beside the JAX package ``repro`` and keeps its module
-names, so each counterpart is easy to find: ``models/{layers,transformer}``,
-``kernels/{flash_attention,paged_attention}``, ``configs``,
-``runtime/step``, ``serve/*`` and ``launch/serve``.  It imports ``torch``
-and numpy only — never ``jax`` and nothing of ``repro``.
+names, so each counterpart is easy to find: ``models/{layers,transformer,
+moe,mamba2}``, ``kernels/*``, ``configs``, ``core``, ``runtime``,
+``serve``, ``api``, ``sim``, ``hier`` and ``launch``.  It imports
+``torch`` and numpy only — never ``jax`` and nothing of ``repro``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``
 (see :func:`resolve_device`).  Float32 matrix products and convolutions

@@ -1,17 +1,22 @@
 """Architecture registry of the port: ``--arch <id>`` -> :class:`ArchSpec`.
 
-Ported: granite-3-2b (dense; served and trained) and mamba2-780m
-(Mamba-2; served).  The other architectures of ``repro.configs`` follow
-the model families in ROADMAP.md queue A.
+Ported: the dense decoders granite-3-2b (served and trained), qwen3-1.7b,
+phi4-mini-3.8b and qwen2.5-32b, the MoE decoder qwen3-moe-30b-a3b, and
+mamba2-780m (Mamba-2; served).  The other architectures of
+``repro.configs`` (deepseek-v3-671b, recurrentgemma-9b, llava-next-34b,
+whisper-medium) follow the model families in ROADMAP.md queue A.
 """
 
 from __future__ import annotations
 
-from . import granite_3_2b, mamba2_780m
+from . import (granite_3_2b, mamba2_780m, phi4_mini_3_8b, qwen2_5_32b,
+               qwen3_1_7b, qwen3_moe_30b_a3b)
 from .common import ArchSpec
 
-ARCHS: dict[str, ArchSpec] = {a.arch_id: a for a in (granite_3_2b.ARCH,
-                                                     mamba2_780m.ARCH)}
+_MODULES = (granite_3_2b, phi4_mini_3_8b, qwen2_5_32b, qwen3_1_7b,
+            mamba2_780m, qwen3_moe_30b_a3b)
+
+ARCHS: dict[str, ArchSpec] = {m.ARCH.arch_id: m.ARCH for m in _MODULES}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

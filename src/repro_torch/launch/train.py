@@ -1,7 +1,9 @@
 """End-to-end training entry point — the :class:`repro_torch.api.Session` CLI.
 
 Counterpart of ``repro.launch.train`` with the same flags plus
-``--device``.  Trains granite-3-2b (the only ported architecture) with
+``--device``.  Trains any decoder of the port's registry (``--arch``:
+granite-3-2b by default, qwen3-1.7b, phi4-mini-3.8b, qwen2.5-32b,
+qwen3-moe-30b-a3b, mamba2-780m) with
 any registered sync strategy on the synthetic Markov corpus: profile ->
 schedule search -> bubble fill -> phase steps -> runner, all wired by
 ``Session(JobConfig(...)).fit(steps)``; this module only parses flags.

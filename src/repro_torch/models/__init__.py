@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense decoder LM and Mamba-2.
+"""Model zoo of the port: the decoder LM (dense and MoE) and Mamba-2.
 
 The names are exported lazily: the kernels' plain versions import
 :mod:`repro_torch.models.layers`, and the models import the kernels.

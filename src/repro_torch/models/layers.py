@@ -11,6 +11,7 @@ reference rounds.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -37,10 +38,22 @@ _NEG_INF = -1e30
 # Init helpers
 # ---------------------------------------------------------------------------
 
+# float32 elements drawn at once: a larger leaf (a stacked expert or
+# feed-forward weight at full width) is drawn one leading slice at a time,
+# so the float32 draw never holds more than 4 GiB beside the weights
+_DRAW_CHUNK = 1 << 30
+
+
 def normal(gen: torch.Generator, shape, scale: float,
            dtype: torch.dtype) -> torch.Tensor:
     """``N(0, scale^2)`` drawn in float32 on ``gen``'s device, then cast."""
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
+    shape = tuple(shape)
+    if len(shape) > 1 and math.prod(shape) > _DRAW_CHUNK:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            out[i] = normal(gen, shape[1:], scale, dtype)
+        return out
+    x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 

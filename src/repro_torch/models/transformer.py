@@ -1,17 +1,22 @@
-"""Dense decoder-only LM (GQA, SwiGLU/GELU, RMSNorm/LayerNorm, RoPE).
+"""Decoder-only LM: dense GQA and MoE (SwiGLU/GELU, RMSNorm/LayerNorm,
+RoPE).
 
-Counterpart of the dense run of ``repro.models.transformer``.  The model
-is functional: it holds only its config, and every method takes the
-parameter dict, which keeps the reference layout — ``embed`` /
-``blocks`` (leaves stacked ``[n_layers, ...]``) / ``head`` — so trees
-carry across with :mod:`repro_torch.convert`.  ``lax.scan`` over layers
-becomes a Python loop over the stacked axis.
+Counterpart of ``repro.models.transformer`` without MLA and multi-token
+prediction.  The model is functional: it holds only its config, and
+every method takes the parameter dict, which keeps the reference layout
+— ``embed`` / [``dense_blocks``] / ``blocks`` / ``head``, block groups
+stacked ``[layers, ...]`` (:meth:`LMConfig.runs`: a dense model has one
+``blocks`` group of dense blocks; an MoE model an optional leading
+``dense_blocks`` group and a ``blocks`` group of MoE blocks) — so trees
+carry across with :mod:`repro_torch.convert`.  ``lax.scan`` over each
+group becomes a Python loop over its stacked axis.
 
-Caches are dicts ``{"blocks": {"k", "v"}}`` of real zero tensors
-``[n_layers, batch, max_seq, n_kv, hd]`` (contiguous) or ``[n_layers,
-n_pages, page_size, n_kv, hd]`` (paged pool).  Prefill and decode write
-them **in place** and return the same dict (the reference returns a new
-one): a full-width pool is too large to copy per token.
+Caches are dicts ``{group: {"k", "v"}}`` of real zero tensors ``[layers,
+batch, max_seq, n_kv, hd]`` (contiguous) or ``[layers, n_pages,
+page_size, n_kv, hd]`` (paged pool), one entry per block group.
+Prefill and decode write them **in place** and return the same dict
+(the reference returns a new one): a full-width pool is too large to
+copy per token.
 
 Prefill attention goes through the flash kernel (CUDA on the card, its
 plain version on the CPU); paged decode goes through the paged kernel.
@@ -22,7 +27,7 @@ With ``remat`` each block of the training forward is recomputed in the
 backward pass (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``; no RNG state is saved, as the model draws none).
 
-MoE, MLA and multi-token prediction are not ported yet.
+MLA and multi-token prediction (deepseek-v3) are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from ..kernels.paged_attention import paged_attention, write_token_to_pages
 from .layers import (apply_rope, dense, dense_init, embed, embed_init,
                      gqa_attention, layer_norm, mlp_apply, mlp_init,
                      norm_init, rms_norm, rope_freqs, softmax_xent)
+from .moe import (MoEConfig, moe_active_param_count, moe_apply, moe_fwd_flops,
+                  moe_init, moe_param_count)
 
 __all__ = ["LMConfig", "DecoderLM"]
 
@@ -64,10 +71,11 @@ class LMConfig:
     window: int | None = None             # local attention window
     param_dtype: str = "bfloat16"
     remat: bool = True
-    # MoE / MLA / MTP: not ported yet (DecoderLM raises)
-    moe: Any = None
-    n_dense_layers: int = 0
+    # MoE
+    moe: MoEConfig | None = None
+    n_dense_layers: int = 0               # leading dense layers (dsv3: 3)
     dense_d_ff: int | None = None
+    # MLA / MTP: not ported yet (DecoderLM raises)
     mla: Any = None
     mtp: bool = False
     mtp_weight: float = 0.3
@@ -80,6 +88,16 @@ class LMConfig:
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    def runs(self) -> list[tuple[str, str, int]]:
+        """(group_name, block_kind, n_layers) in network order."""
+        if self.moe is None:
+            return [("blocks", "dense", self.n_layers)]
+        out = []
+        if self.n_dense_layers:
+            out.append(("dense_blocks", "dense", self.n_dense_layers))
+        out.append(("blocks", "moe", self.n_layers - self.n_dense_layers))
+        return out
+
 
 def _layer(tree: Tree, i: int) -> Tree:
     """Layer ``i`` of a stacked group (views, no copies)."""
@@ -89,9 +107,9 @@ def _layer(tree: Tree, i: int) -> Tree:
 
 
 class DecoderLM:
-    """Functional dense decoder LM (init / apply / loss / prefill /
-    decode, contiguous and paged; unit layout and analytic costs for the
-    planner)."""
+    """Functional decoder LM, dense or MoE (init / apply / loss / prefill
+    / decode, contiguous and paged; unit layout and analytic costs for
+    the planner)."""
 
     # cache entries are addressed by position and masked by valid length,
     # so right-padded (chunked) prefill cannot leak into decode
@@ -100,19 +118,17 @@ class DecoderLM:
     supports_paged_kv = True
 
     def __init__(self, cfg: LMConfig):
-        if cfg.moe is not None or cfg.mla is not None or cfg.mtp:
+        if cfg.mla is not None or cfg.mtp:
             raise NotImplementedError(
-                f"{cfg.name}: MoE, MLA and multi-token prediction are not "
+                f"{cfg.name}: MLA and multi-token prediction are not "
                 "ported to repro_torch yet (ROADMAP.md queue A item 9)")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ init
-    def init(self, generator: torch.Generator) -> Tree:
-        """Random parameters on ``generator``'s device, in the reference
-        layout and scales (the draws differ from JAX's)."""
+    def _group_init(self, g: torch.Generator, kind: str, n: int) -> Tree:
+        """One block group's parameters, stacked ``[n, ...]``."""
         cfg = self.cfg
-        g, dt, n = generator, cfg.dtype, cfg.n_layers
-        d, hd, dev = cfg.d_model, cfg.hd, generator.device
+        dt, d, hd, dev = cfg.dtype, cfg.d_model, cfg.hd, g.device
         ln_bias = cfg.norm_kind == "layernorm"
         stack = (n,)
         attn = {
@@ -128,20 +144,35 @@ class DecoderLM:
         if cfg.qk_norm:
             attn["q_norm"] = norm_init(hd, dtype=dt, stack=stack, device=dev)
             attn["k_norm"] = norm_init(hd, dtype=dt, stack=stack, device=dev)
-        blocks = {
+        if kind == "moe":
+            mlp = moe_init(g, cfg.moe, d, dtype=dt, stack=stack)
+        else:
+            mlp = mlp_init(g, d, cfg.dense_d_ff or cfg.d_ff,
+                           kind=cfg.mlp_kind, dtype=dt, stack=stack)
+        return {
             "ln1": norm_init(d, dtype=dt, bias=ln_bias, stack=stack,
                              device=dev),
             "attn": attn,
             "ln2": norm_init(d, dtype=dt, bias=ln_bias, stack=stack,
                              device=dev),
-            "mlp": mlp_init(g, d, cfg.dense_d_ff or cfg.d_ff,
-                            kind=cfg.mlp_kind, dtype=dt, stack=stack),
+            "mlp": mlp,
         }
-        head = {"norm": norm_init(d, dtype=dt, bias=ln_bias, device=dev)}
+
+    def init(self, generator: torch.Generator) -> Tree:
+        """Random parameters on ``generator``'s device, in the reference
+        layout and scales (the draws differ from JAX's): each block group
+        of :meth:`LMConfig.runs`, the head, then the embedding."""
+        cfg = self.cfg
+        g, dt, d = generator, cfg.dtype, cfg.d_model
+        groups = {group: self._group_init(g, kind, n)
+                  for group, kind, n in cfg.runs()}
+        head = {"norm": norm_init(d, dtype=dt,
+                                  bias=cfg.norm_kind == "layernorm",
+                                  device=g.device)}
         if not cfg.tie_embeddings:
             head["out"] = dense_init(g, d, cfg.vocab, dtype=dt)
-        return {"embed": embed_init(g, cfg.vocab, d, dtype=dt),
-                "blocks": blocks, "head": head}
+        return {"embed": embed_init(g, cfg.vocab, d, dtype=dt), **groups,
+                "head": head}
 
     # ----------------------------------------------------------------- apply
     def _project_qkv(self, p, x, positions):
@@ -164,25 +195,29 @@ class DecoderLM:
         return (rms_norm(p, x) if self.cfg.norm_kind == "rmsnorm"
                 else layer_norm(p, x))
 
-    def _block(self, attend, i, p, x):
-        x = x + attend(i, p["attn"], self._norm(p["ln1"], x))
-        return x + mlp_apply(p["mlp"], self._norm(p["ln2"], x),
-                             kind=self.cfg.mlp_kind)
+    def _block(self, attend, group, kind, i, p, x):
+        x = x + attend(group, i, p["attn"], self._norm(p["ln1"], x))
+        h = self._norm(p["ln2"], x)
+        if kind == "moe":
+            return x + moe_apply(p["mlp"], self.cfg.moe, h)
+        return x + mlp_apply(p["mlp"], h, kind=self.cfg.mlp_kind)
 
     def _blocks(self, params, x, attend, *, remat: bool = False):
-        """Run the block stack; ``attend(layer, p_attn, h)`` is the
-        attention sub-layer of one mode (full, prefill, decode, paged).
-        ``remat`` recomputes each block in the backward pass instead of
-        keeping its activations."""
-        for i in range(self.cfg.n_layers):
-            p = _layer(params["blocks"], i)
-            if remat:
-                # no RNG state to keep (the model has no dropout), and
-                # saving it is not allowed while a CUDA graph captures
-                x = checkpoint(self._block, attend, i, p, x,
-                               use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = self._block(attend, i, p, x)
+        """Run the block groups in network order; ``attend(group, layer,
+        p_attn, h)`` is the attention sub-layer of one mode (full,
+        prefill, decode, paged).  ``remat`` recomputes each block in the
+        backward pass instead of keeping its activations."""
+        for group, kind, n in self.cfg.runs():
+            for i in range(n):
+                p = _layer(params[group], i)
+                if remat:
+                    # no RNG state to keep (the model has no dropout), and
+                    # saving it is not allowed while a CUDA graph captures
+                    x = checkpoint(self._block, attend, group, kind, i, p, x,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = self._block(attend, group, kind, i, p, x)
         return x
 
     def _head(self, params, x):
@@ -200,7 +235,7 @@ class DecoderLM:
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
 
-        def attend(_i, p, h):
+        def attend(_group, _i, p, h):
             q, k, v = self._project_qkv(p, h, positions)
             out = gqa_attention(q, k, v, q_positions=positions,
                                 kv_positions=positions, causal=True,
@@ -231,12 +266,16 @@ class DecoderLM:
         return softmax_xent(logits[:, :-1], labels[:, 1:])
 
     # --------------------------------------------------------------- serving
-    def init_cache(self, batch: int, max_seq: int, *, device) -> Tree:
+    def _kv(self, lead: tuple[int, ...], *, device) -> Tree:
+        """Zero k/v per block group, ``[layers, *lead, n_kv, hd]``."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        return {"blocks": {
-            name: torch.zeros(shape, dtype=cfg.dtype, device=device)
-            for name in ("k", "v")}}
+        return {group: {
+            name: torch.zeros((n, *lead, cfg.n_kv_heads, cfg.hd),
+                              dtype=cfg.dtype, device=device)
+            for name in ("k", "v")} for group, _kind, n in cfg.runs()}
+
+    def init_cache(self, batch: int, max_seq: int, *, device) -> Tree:
+        return self._kv((batch, max_seq), device=device)
 
     def prefill(self, params, tokens, cache) -> tuple[torch.Tensor, Tree]:
         """Write ``tokens``' KV into positions ``[0, s)`` of every lane of
@@ -252,12 +291,11 @@ class DecoderLM:
         x = embed(params["embed"], tokens)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        ck, cv = cache["blocks"]["k"], cache["blocks"]["v"]
 
-        def attend(i, p, h):
+        def attend(group, i, p, h):
             q, k, v = self._project_qkv(p, h, positions)
-            ck[i, :, :s] = k
-            cv[i, :, :s] = v
+            cache[group]["k"][i, :, :s] = k
+            cache[group]["v"][i, :, :s] = v
             out = flash_attention(q, k, v, causal=True, window=cfg.window)
             return out.reshape(b, s, -1) @ p["wo"]["w"]
 
@@ -276,16 +314,16 @@ class DecoderLM:
         cfg = self.cfg
         x = embed(params["embed"], token)
         b = x.shape[0]
-        ck, cv = cache["blocks"]["k"], cache["blocks"]["v"]
-        max_seq = ck.shape[2]
+        max_seq = cache["blocks"]["k"].shape[2]
         positions = pos[:, None]
         rows = torch.arange(b, device=x.device)
         # dynamic_update_slice clamps its index into range; so does this
         write = pos.long().clamp(0, max_seq - 1)
         kv_pos = torch.arange(max_seq, device=x.device).expand(b, max_seq)
 
-        def attend(i, p, h):
+        def attend(group, i, p, h):
             q, k, v = self._project_qkv(p, h, positions)
+            ck, cv = cache[group]["k"], cache[group]["v"]
             ck[i, rows, write] = k[:, 0]
             cv[i, rows, write] = v[:, 0]
             out = gqa_attention(q, ck[i], cv[i], q_positions=positions,
@@ -299,13 +337,10 @@ class DecoderLM:
     # -------------------------------------------------------- paged serving
     def init_paged_cache(self, n_pages: int, page_size: int, *,
                          device) -> Tree:
-        """Global KV page pool ``[n_layers, n_pages, page_size, n_kv,
-        hd]`` for k and v; page 0 is the pool's trash page."""
-        cfg = self.cfg
-        shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
-        return {"blocks": {
-            name: torch.zeros(shape, dtype=cfg.dtype, device=device)
-            for name in ("k", "v")}}
+        """Global KV page pool, per block group ``[layers, n_pages,
+        page_size, n_kv, hd]`` for k and v; page 0 is the pool's trash
+        page."""
+        return self._kv((n_pages, page_size), device=device)
 
     def decode_step_paged(self, params, pages, token, pos, block_tables,
                           active, *, attn_scratch=None
@@ -326,10 +361,10 @@ class DecoderLM:
         b = x.shape[0]
         positions = pos[:, None]
         kv_len = pos + 1
-        pk, pv = pages["blocks"]["k"], pages["blocks"]["v"]
 
-        def attend(i, p, h):
+        def attend(group, i, p, h):
             q, k, v = self._project_qkv(p, h, positions)
+            pk, pv = pages[group]["k"], pages[group]["v"]
             write_token_to_pages(pk[i], block_tables, pos, active, k[:, 0])
             write_token_to_pages(pv[i], block_tables, pos, active, v[:, 0])
             out = paged_attention(q[:, 0], pk[i], pv[i], block_tables,
@@ -343,15 +378,18 @@ class DecoderLM:
     # ------------------------------------------------------------- structure
     def unit_layout(self) -> UnitLayout:
         """Schedulable units in network order: ``embed``, one per layer
-        of ``blocks``, ``head``."""
+        of each block group (numbered across groups), ``head``."""
         entries = [UnitEntry("embed", "embed", None)]
-        entries += [UnitEntry(f"layer_{i}", "blocks", i)
-                    for i in range(self.cfg.n_layers)]
+        gi = 0
+        for group, _kind, n in self.cfg.runs():
+            entries += [UnitEntry(f"layer_{gi + i}", group, i)
+                        for i in range(n)]
+            gi += n
         entries.append(UnitEntry("head", "head", None))
         return UnitLayout(tuple(entries))
 
     # ---------------------------------------------------- analytic accounting
-    def _block_param_count(self) -> int:
+    def _block_param_count(self, kind: str) -> int:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
         attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
@@ -361,19 +399,41 @@ class DecoderLM:
         if cfg.qk_norm:
             attn += 2 * hd
         norms = 2 * d * (2 if cfg.norm_kind == "layernorm" else 1)
-        mlp = d * (cfg.dense_d_ff or cfg.d_ff) \
-            * (3 if cfg.mlp_kind == "swiglu" else 2)
+        if kind == "moe":
+            mlp = moe_param_count(cfg.moe, d)
+        else:
+            mlp = d * (cfg.dense_d_ff or cfg.d_ff) \
+                * (3 if cfg.mlp_kind == "swiglu" else 2)
         return attn + mlp + norms
 
     def param_count(self) -> int:
         cfg = self.cfg
-        n = cfg.vocab * cfg.d_model + cfg.n_layers * self._block_param_count() \
-            + cfg.d_model
+        n = cfg.vocab * cfg.d_model                       # embed
+        for _group, kind, cnt in cfg.runs():
+            n += cnt * self._block_param_count(kind)
+        n += cfg.d_model                                  # final norm
         if not cfg.tie_embeddings:
             n += cfg.d_model * cfg.vocab
         return n
 
-    def _block_fwd_flops(self, tokens: int, kv_len: int) -> float:
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top-k + shared only)."""
+        cfg = self.cfg
+        if cfg.moe is None:
+            return self.param_count()
+        n = cfg.vocab * cfg.d_model + cfg.d_model
+        if not cfg.tie_embeddings:
+            n += cfg.d_model * cfg.vocab
+        for _group, kind, cnt in cfg.runs():
+            per = self._block_param_count(kind)
+            if kind == "moe":
+                per += moe_active_param_count(cfg.moe, cfg.d_model) \
+                    - moe_param_count(cfg.moe, cfg.d_model)
+            n += cnt * per
+        return n
+
+    def _block_fwd_flops(self, kind: str, tokens: int, seq: int,
+                         kv_len: int) -> float:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
         proj = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
@@ -381,9 +441,12 @@ class DecoderLM:
         att_len = kv_len if cfg.window is None else min(kv_len, cfg.window)
         attn = 2.0 * tokens * proj \
             + 2.0 * tokens * att_len * cfg.n_heads * hd * 2
-        d_ff = cfg.dense_d_ff or cfg.d_ff
-        mlp = 2.0 * tokens * d * d_ff * (3 if cfg.mlp_kind == "swiglu"
-                                         else 2)
+        if kind == "moe":
+            mlp = moe_fwd_flops(cfg.moe, d, tokens, seq)
+        else:
+            d_ff = cfg.dense_d_ff or cfg.d_ff
+            mlp = 2.0 * tokens * d * d_ff * (3 if cfg.mlp_kind == "swiglu"
+                                             else 2)
         return attn + mlp
 
     def layer_costs(self, batch: int, seq: int, *,
@@ -391,14 +454,18 @@ class DecoderLM:
         """(unit_name, n_params, fwd_flops) per unit — profiler input.
 
         ``mode="decode"`` charges one-token steps against a ``seq``-deep KV
-        cache (serving shapes)."""
+        cache (serving shapes); an MoE block's capacity is charged at
+        ``seq`` in both modes, as the reference does."""
         cfg = self.cfg
         tokens = batch * seq if mode == "train" else batch
         out = [("embed", float(cfg.vocab * cfg.d_model),
                 2.0 * tokens * cfg.d_model)]
-        per_p = float(self._block_param_count())
-        per_f = self._block_fwd_flops(tokens, seq)
-        out += [(f"layer_{i}", per_p, per_f) for i in range(cfg.n_layers)]
+        gi = 0
+        for _group, kind, cnt in cfg.runs():
+            per_p = float(self._block_param_count(kind))
+            per_f = self._block_fwd_flops(kind, tokens, seq, seq)
+            out += [(f"layer_{gi + i}", per_p, per_f) for i in range(cnt)]
+            gi += cnt
         head_p = float(cfg.d_model + (0 if cfg.tie_embeddings
                                       else cfg.d_model * cfg.vocab))
         out.append(("head", head_p, 2.0 * tokens * cfg.d_model * cfg.vocab))

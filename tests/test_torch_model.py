@@ -1,11 +1,17 @@
-"""The port's dense model against the JAX package's, on the same params.
+"""The port's decoder LM against the JAX package's, on the same params.
 
 granite-3-2b ``SMOKE`` (4 layers, d_model 64, 8/2 heads, head_dim 8,
-vocab 512, float32): JAX ``DecoderLM(SMOKE).init(PRNGKey(0))`` is carried
-into the port with ``params_from_numpy`` and both models run the same
-numpy-made inputs.  Tolerance ``atol=rtol=1e-4``: float32 matmuls sum in
-a different order in XLA:CPU and in torch, compounded over 4 layers.
-The layer primitives alone are held to ``1e-5``.
+vocab 512, float32), a variant taking the branches granite does not, and
+the ``SMOKE`` configs of qwen3-moe-30b-a3b (MoE), qwen3-1.7b (qk-norm),
+phi4-mini-3.8b (GQA group 3) and qwen2.5-32b (QKV bias, untied head):
+JAX ``DecoderLM(SMOKE).init(PRNGKey(0))`` is carried into the port with
+``params_from_numpy`` and both models run the same numpy-made inputs.
+Tolerance ``atol=rtol=1e-4``: float32 matmuls sum in a different order
+in XLA:CPU and in torch, compounded over 3-4 layers (the MoE smoke's
+outputs agree so only while no expert choice flips between the two).
+Gradients are held to the same.  ``unit_layout``, ``layer_costs`` and
+the full configs' ``param_count`` are equal exactly.  The layer
+primitives alone are held to ``1e-5``.
 """
 
 import dataclasses
@@ -17,6 +23,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.configs import granite_3_2b as jax_granite  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro_torch.configs import get_arch, granite_3_2b  # noqa: E402
@@ -25,6 +32,7 @@ from repro_torch.kernels.paged_attention import \
     write_token_to_pages  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models.transformer import DecoderLM, LMConfig  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -55,16 +63,28 @@ _VARIANT = dict(name="variant", n_layers=2, d_model=32, n_heads=4,
                 tie_embeddings=False, window=5, param_dtype="float32")
 
 
+# the archs this file holds at their SMOKE configs beside granite's
+NEW_ARCHS = ["qwen3-moe-30b-a3b", "qwen3-1.7b", "phi4-mini-3.8b",
+             "qwen2.5-32b"]
+# published sizes, counted by the reference's formulas
+FULL_PARAMS = {"granite-3-2b": 2_533_531_648,
+               "qwen3-moe-30b-a3b": 30_532_122_624,
+               "qwen3-1.7b": 1_720_574_976,
+               "phi4-mini-3.8b": 3_836_021_760,
+               "qwen2.5-32b": 32_763_876_352}
+
+
 def _make_pair(name):
     from repro.models.transformer import DecoderLM as JDecoderLM
     from repro.models.transformer import LMConfig as JConfig
     if name == "granite-smoke":
-        jcfg, tcfg = jax_granite.SMOKE, granite_3_2b.SMOKE
+        jm, tm = JDecoderLM(jax_granite.SMOKE), DecoderLM(granite_3_2b.SMOKE)
+    elif name == "variant":
+        jm, tm = JDecoderLM(JConfig(**_VARIANT)), DecoderLM(LMConfig(**_VARIANT))
     else:
-        jcfg, tcfg = JConfig(**_VARIANT), LMConfig(**_VARIANT)
-    jm = JDecoderLM(jcfg)
+        jm, tm = jget_arch(name).make_smoke(), get_arch(name).make_smoke()
     jp = jax.device_get(jm.init(jax.random.PRNGKey(0)))
-    return jm, jp, DecoderLM(tcfg), params_from_numpy(jp, "cpu")
+    return jm, jp, tm, params_from_numpy(jp, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +92,8 @@ def granite():
     return _make_pair("granite-smoke")
 
 
-@pytest.fixture(scope="module", params=["granite-smoke", "variant"])
+@pytest.fixture(scope="module",
+                params=["granite-smoke", "variant", *NEW_ARCHS])
 def pair(request):
     return _make_pair(request.param)
 
@@ -84,23 +105,38 @@ def _tokens(seed, shape, vocab):
 
 # ---------------------------------------------------------------- configs
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", *NEW_ARCHS])
 @pytest.mark.parametrize("name", ["CONFIG", "SMOKE"])
-def test_config_matches_reference(name):
-    ours = dataclasses.asdict(getattr(granite_3_2b, name))
-    theirs = dataclasses.asdict(getattr(jax_granite, name))
+def test_config_matches_reference(arch, name):
+    make = {"CONFIG": "make_model", "SMOKE": "make_smoke"}[name]
+    ours = dataclasses.asdict(getattr(get_arch(arch), make)().cfg)
+    theirs = dataclasses.asdict(getattr(jget_arch(arch), make)().cfg)
     # the reference never reads attn_impl (ROADMAP C3); the port's prefill
     # always runs the flash kernel, so its config has no such field
     theirs.pop("attn_impl")
     assert ours == theirs
+    assert get_arch(arch).family == jget_arch(arch).family
 
 
 def test_unported_archs_and_features_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("qwen3-1.7b")
-    for kw in ({"moe": object()}, {"mla": object()}, {"mtp": True}):
+        get_arch("deepseek-v3-671b")
+    for kw in ({"mla": object()}, {"mtp": True}):
         cfg = dataclasses.replace(granite_3_2b.SMOKE, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderLM(cfg)
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_PARAMS))
+def test_full_config_param_count_matches_reference(arch):
+    """Counted from the configs alone: nothing is initialised."""
+    ours = get_arch(arch).make_model()
+    theirs = jget_arch(arch).make_model()
+    assert ours.param_count() == theirs.param_count() == FULL_PARAMS[arch]
+    assert ours.active_param_count() == theirs.active_param_count()
+    for mode in ("train", "decode"):
+        assert ours.layer_costs(8, 512, mode=mode) == \
+            theirs.layer_costs(8, 512, mode=mode)
 
 
 # ---------------------------------------------------------------- convert
@@ -218,6 +254,38 @@ def test_apply_logits_match(pair):
            jm.apply(jp, jnp.asarray(toks)))
 
 
+def test_loss_and_grads_match(pair):
+    """Training forward (remat on, as the configs set it) and backward."""
+    jm, jp, tm, tp = pair
+    toks = _tokens(7, (2, 12), tm.cfg.vocab)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+    jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss))(jp, jbatch)
+    tp = tree_map(lambda x: x.detach().clone().requires_grad_(), tp)
+    t = torch.from_numpy(toks).long()
+    loss = tm.loss(tp, {"tokens": t, "labels": t})
+    loss.backward()
+    _close(loss, jloss)
+    got, want = _flat(tree_map(lambda x: x.grad, tp)), \
+        _flat(jax.device_get(jgrads))
+    assert got.keys() == want.keys()
+    for k in got:
+        _close(got[k], want[k])
+
+
+def test_unit_layout_and_layer_costs_match(pair):
+    jm, _, tm, tp = pair
+    assert [dataclasses.astuple(e) for e in tm.unit_layout().entries] == \
+        [dataclasses.astuple(e) for e in jm.unit_layout().entries]
+    tm.unit_layout().validate_against(tp, worker_stacked=False)
+    for mode in ("train", "decode"):
+        assert tm.layer_costs(2, 16, mode=mode) == \
+            jm.layer_costs(2, 16, mode=mode)
+    assert tm.param_count() == jm.param_count()
+    if tm.cfg.norm_kind == "rmsnorm":   # the count leaves out a LayerNorm
+        assert tm.param_count() == tl.count_params(tp)  # head's bias
+    assert tm.active_param_count() == jm.active_param_count()
+
+
 def _prefilled(pair, b=2, s=9, max_seq=16):
     jm, jp, tm, tp = pair
     toks = _tokens(1, (b, s), tm.cfg.vocab)
@@ -231,8 +299,10 @@ def test_prefill_logits_and_cache_match(pair):
     (jlog, jc), (tlog, tc) = _prefilled(pair)
     assert tuple(tlog.shape) == jlog.shape
     _close(tlog, jlog)
-    for name in ("k", "v"):
-        _close(tc["blocks"][name], jc["blocks"][name])
+    assert tc.keys() == jc.keys()
+    for group in tc:
+        for name in ("k", "v"):
+            _close(tc[group][name], jc[group][name])
 
 
 def test_decode_step_matches(pair):
@@ -244,8 +314,9 @@ def test_decode_step_matches(pair):
     tlog, tc = tm.decode_step(tp, tc, torch.from_numpy(tok),
                               torch.from_numpy(pos))
     _close(tlog, jlog)
-    for name in ("k", "v"):
-        _close(tc["blocks"][name], jc["blocks"][name])
+    for group in tc:
+        for name in ("k", "v"):
+            _close(tc[group][name], jc[group][name])
 
 
 def test_decode_step_per_lane_positions_match_vmapped_reference(pair):
@@ -261,8 +332,9 @@ def test_decode_step_per_lane_positions_match_vmapped_reference(pair):
     tlog, tc = tm.decode_step(tp, tc, torch.from_numpy(tok)[:, None],
                               torch.from_numpy(pos))
     _close(tlog[:, 0], jlog)
-    for name in ("k", "v"):
-        _close(tc["blocks"][name], jc["blocks"][name])
+    for group in tc:
+        for name in ("k", "v"):
+            _close(tc[group][name], jc[group][name])
 
 
 def test_decode_step_paged_matches(pair):
@@ -271,9 +343,9 @@ def test_decode_step_paged_matches(pair):
     rng = np.random.default_rng(4)
     slots, ps, mb = 3, 4, 3
     n_pages = 1 + slots * mb
-    shape = (cfg.n_layers, n_pages, ps, cfg.n_kv_heads, cfg.hd)
-    pages = {"blocks": {n: rng.standard_normal(shape, np.float32)
-                        for n in ("k", "v")}}
+    pages = {group: {n: rng.standard_normal(
+        (layers, n_pages, ps, cfg.n_kv_heads, cfg.hd), np.float32)
+        for n in ("k", "v")} for group, _kind, layers in cfg.runs()}
     bt = rng.permutation(np.arange(1, n_pages)).reshape(slots, mb) \
         .astype(np.int32)
     pos = np.array([5, 11, 0], np.int32)
@@ -288,10 +360,11 @@ def test_decode_step_paged_matches(pair):
         torch.from_numpy(pos), torch.from_numpy(bt),
         torch.from_numpy(active))
     _close(tlog, jlog)
-    for name in ("k", "v"):
-        # page 0 is the trash page: written, never read
-        _close(tpages["blocks"][name][:, 1:],
-               np.asarray(jpages["blocks"][name])[:, 1:])
+    for group in pages:
+        for name in ("k", "v"):
+            # page 0 is the trash page: written, never read
+            _close(tpages[group][name][:, 1:],
+                   np.asarray(jpages[group][name])[:, 1:])
 
 
 def test_write_token_to_pages_gates_inactive_lanes():

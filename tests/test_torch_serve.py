@@ -327,6 +327,11 @@ def test_port_never_imports_jax_or_repro():
         "s = Session(JobConfig(algo='hier-async', workers=2, period=2,"
         " seq=8, batch_per_worker=1), device='cpu')\n"
         "s.fit(2); s.simulate('churn')\n"
+        "import repro_torch.configs, repro_torch.models.moe\n"
+        "Session(JobConfig(arch='qwen3-moe-30b-a3b', workers=2, period=2,"
+        " seq=8, batch_per_worker=1), device='cpu').fit(2).serve()\n"
+        f"sys.path.insert(0, {str(SRC.parent)!r})\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
         "m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
