@@ -164,13 +164,36 @@ code is non-zero):
    tick's byte bound (every weight but the embedding table: the dense
    dispatch runs every expert) and its share; then ``moe_profile``,
    its decode blocks under ``torch.profiler``.
+21. ``mla_reference`` — deepseek-v3 SMOKE (float32: MLA, the sigmoid
+   MoE with a shared expert, MTP) on the card against the CPU, same
+   weights: logits of the full forward, of a prefill and of four paged
+   decode steps, and the loss with MTP, within ``MOE_REF_TOL``; every
+   MoE call's routing under ``MOE_FLIP_MARGIN``; greedy streams on paged
+   and contiguous KV (graphs on the card) equal, the engine holding no
+   paged-kernel scratch; a 4-step 2-worker ``Session.fit`` under
+   ``dreamddp`` and ``dreamddp-int8`` (fingerprints equal, losses within
+   ``TRAIN_REF_TOL``, fused AdamW one launch a leaf a step, the int8
+   kernels in the int8 fit, counters set to 0 just before each fit);
+   neither attention kernel launched in the phase.  Then one MLA layer
+   at published widths (128 heads, 0.75 GB float32): the absorbed
+   decode of a token, contiguous and paged, against the expanded
+   forward at its position, within ``MLA_ABSORB_TOL``.
+22. ``mla_serve`` — deepseek-v3-671b at published widths, depth 61 -> 4
+   (3 dense blocks, 1 MoE block of 256 experts top-8, the MTP block;
+   26,721,155,072 random bf16 parameters) serves the serve phase's 12
+   requests through the same engine (paged latents, graphs; neither
+   attention kernel launches); beside the ms per tick, the tick's byte
+   bound (every weight but the embedding table and the MTP block) and
+   its share; then ``mla_profile``, its decode blocks under
+   ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line (each kernel's cases, the path
 whose run gave its launches — ``serve``, ``train``, ``mamba2_serve``,
 ``moe_serve`` — fused AdamW's on the async path too, as
-``launches_async_train``, and ptxas's registers, shared memory and
-spills for its source), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
-{...}}``.
+``launches_async_train``, the training kernels' in ``mla_reference``'s
+fits as ``launches_mla_reference``, and ptxas's registers, shared
+memory and spills for its source), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -196,7 +219,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api import JobConfig, Session  # noqa: E402
-from repro_torch.configs import (granite_3_2b, mamba2_780m,  # noqa: E402
+from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
+                                 granite_3_2b, mamba2_780m,
                                  qwen3_moe_30b_a3b)
 from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
                                            worker_unstack)
@@ -209,6 +233,7 @@ from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import (ssd_chunk,  # noqa: E402
                                           ssd_chunk_grouped)
 from repro_torch.models.layers import count_params  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
@@ -610,7 +635,7 @@ def drive_serve(model, params, engine_cfg, make_requests, kernels) -> tuple:
             or eos_comp.tokens != base[eos_req].tokens[:stop_at]:
         raise RuntimeError(f"EOS request: {eos_comp.finish_reason} "
                            f"{eos_comp.tokens} vs {base[eos_req].tokens}")
-    if min(launches.values()) <= 0:
+    if launches and min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel was not launched on the main path: "
                            f"{launches}")
 
@@ -2111,9 +2136,10 @@ def _paged_from_lanes(model, cache, page_size: int):
     """A contiguous cache's lanes scattered into a fresh page pool (page
     0 the trash page), lane i into pages ``1 + i * nb ...``; returns the
     pool and its block tables."""
-    b, depth = cache["blocks"]["k"].shape[1:3]
+    leaf = next(iter(cache["blocks"].values()))    # GQA k or MLA c_kv
+    b, depth = leaf.shape[1:3]
     nb = depth // page_size
-    dev = cache["blocks"]["k"].device
+    dev = leaf.device
     pages = model.init_paged_cache(1 + b * nb, page_size, device=dev)
     bt = torch.arange(1, 1 + b * nb, dtype=torch.int32,
                       device=dev).reshape(b, nb)
@@ -2151,91 +2177,115 @@ def _moe_direct(model, params, toks: np.ndarray, feed: np.ndarray,
     return {k: v.float().cpu() for k, v in out.items()}, routes
 
 
-def moe_reference() -> dict:
-    """qwen3-moe SMOKE (float32), card (the flash and paged kernels, the
-    decode block as graph replays) against CPU (plain versions), same
-    weights: logits of the full forward, of a prefill and of four paged
-    decode steps, the loss, every MoE layer's routing (a flip accepted
-    only below ``MOE_FLIP_MARGIN``); greedy streams of the engine on
-    paged and contiguous KV; a 4-step 2-worker ``Session.fit`` from the
-    same parameters (fingerprints equal, losses within
-    ``TRAIN_REF_TOL["dreamddp"]``)."""
-    model = DecoderLM(qwen3_moe_30b_a3b.SMOKE)
-    cpu_params = model.init(torch.Generator().manual_seed(0))
-    params = _to(cpu_params, "cuda")
-    vocab = model.cfg.vocab
-    rng = np.random.default_rng(12)
-    toks = rng.integers(0, vocab, (3, 37)).astype(np.int64)
-    feed = rng.integers(0, vocab, (3, 4)).astype(np.int64)
-    f0, p0 = flash_attention.launches, paged_attention.launches
+def smoke_direct(model, params, cpu_params, phase: str, seed: int
+                 ) -> tuple[dict, np.random.Generator]:
+    """A smoke model on the card against the CPU, same weights: logits of
+    the full forward, of a prefill and of four paged decode steps, and
+    the loss, within ``MOE_REF_TOL``; every MoE call's top-k routing
+    equal, a flip accepted only below ``MOE_FLIP_MARGIN`` and reported
+    with its margin.  Returns (the numbers, the generator whose draws
+    made the tokens, for the phase's next draws)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, model.cfg.vocab, (3, 37)).astype(np.int64)
+    feed = rng.integers(0, model.cfg.vocab, (3, 4)).astype(np.int64)
     card, card_routes = _moe_direct(model, params, toks, feed, "cuda")
-    if flash_attention.launches == f0 or paged_attention.launches == p0:
-        raise RuntimeError("moe_reference did not go through both kernels")
     cpu, cpu_routes = _moe_direct(model, cpu_params, toks, feed, "cpu")
-    out = {"phase": "moe_reference", "logit_tol": MOE_REF_TOL}
+    out = {"phase": phase, "logit_tol": MOE_REF_TOL}
     for key in card:
         err, excess = _max_excess(card[key], cpu[key], MOE_REF_TOL)
         if excess > 0 or not torch.isfinite(card[key]).all():
-            raise RuntimeError(f"moe_reference {key}: differs by {err}")
+            raise RuntimeError(f"{phase} {key}: differs by {err}")
         out[f"max_abs_err_{key}"] = err
     flips, min_margin = [], math.inf
-    for layer, ((ic, _), (ip, mp)) in enumerate(
+    for call, ((ic, _), (ip, mp)) in enumerate(
             zip(card_routes, cpu_routes, strict=True)):
         min_margin = min(min_margin, mp.min().item())
-        differ = (ic != ip).any(-1)
-        for where in differ.nonzero().tolist():
+        for where in (ic != ip).any(-1).nonzero().tolist():
             margin = mp[tuple(where)].item()
-            flips.append({"call": layer, "token": where, "margin": margin})
+            flips.append({"call": call, "token": where, "margin": margin})
             if margin >= MOE_FLIP_MARGIN:
-                raise RuntimeError(f"moe_reference: routing flip at margin "
+                raise RuntimeError(f"{phase}: routing flip at margin "
                                    f"{margin} (limit {MOE_FLIP_MARGIN}): "
-                                   f"call {layer}, token {where}")
+                                   f"call {call}, token {where}")
     out.update({"moe_calls": len(cpu_routes), "routing_flips": flips,
                 "min_topk_margin": min_margin,
                 "flip_margin_limit": MOE_FLIP_MARGIN})
+    return out, rng
 
-    prompts = [rng.integers(0, vocab, n).tolist()
+
+def smoke_streams(model, params, cpu_params, phase: str,
+                  rng: np.random.Generator) -> dict:
+    """Greedy streams of the engine on paged and contiguous KV (graphs on
+    the card), card against CPU: equal.  Returns tokens by backend."""
+    prompts = [rng.integers(0, model.cfg.vocab, n).tolist()
                for n in (5, 9, 9, 14, 3, 20)]
     budgets = (6, 4, 8, 3, 7, 5)
     streams = {}
     for backend in ("paged", "contiguous"):
         cfg = EngineConfig(max_batch=4, max_seq=32, decode_block=4,
                            kv_backend=backend, page_size=8)
-        got = ServeEngine(model, params, cfg, device="cuda").generate(
-            [Request(tokens=p, max_new_tokens=g)
-             for p, g in zip(prompts, budgets, strict=True)])
+        reqs = [Request(tokens=p, max_new_tokens=g)
+                for p, g in zip(prompts, budgets, strict=True)]
+        got = ServeEngine(model, params, cfg, device="cuda").generate(reqs)
         want = ServeEngine(model, cpu_params, cfg, device="cpu").generate(
-            [Request(tokens=p, max_new_tokens=g)
-             for p, g in zip(prompts, budgets, strict=True)])
+            [dataclasses.replace(r) for r in reqs])
         a = [(c.tokens, c.finish_reason) for c in got]
         b = [(c.tokens, c.finish_reason) for c in want]
         if a != b:
-            raise RuntimeError(f"moe_reference {backend}: card {a} != cpu "
-                               f"{b}")
+            raise RuntimeError(f"{phase} {backend}: card {a} != cpu {b}")
         streams[backend] = sum(len(c.tokens) for c in got)
-    out["stream_tokens_equal"] = streams
+    return streams
 
-    job = JobConfig(arch="qwen3-moe-30b-a3b", smoke=True, workers=2,
-                    period=2, seq=32, batch_per_worker=2)
+
+def smoke_fit(arch: str, algo: str, params, cpu_params, phase: str
+              ) -> dict:
+    """A 4-step 2-worker ``Session.fit`` of ``arch``'s smoke config on
+    the card and on the CPU from the same parameters: fingerprints
+    equal, losses within ``TRAIN_REF_TOL[algo]``, one fused AdamW
+    launch a leaf a step and the int8 kernels exactly when ``algo``
+    syncs in int8 (counters set to 0 just before the card's fit)."""
+    job = JobConfig(arch=arch, smoke=True, algo=algo, workers=2, period=2,
+                    seq=32, batch_per_worker=2)
     _reset_train_counts()
     fit_card = Session(job, params=params, device="cuda").fit(4)
     counts = _train_counts()
     fit_cpu = Session(job, params=cpu_params, device="cpu").fit(4)
     if fit_card.plan.fingerprint() != fit_cpu.plan.fingerprint():
-        raise RuntimeError("moe_reference: plan fingerprints differ")
+        raise RuntimeError(f"{phase} {algo}: plan fingerprints differ")
     lc = np.array([h["loss"] for h in fit_card.history])
     lp = np.array([h["loss"] for h in fit_cpu.history])
     loss_err = float(np.max(np.abs(lc - lp) / np.abs(lp)))
     if not np.isfinite(lc).all() \
-            or loss_err > TRAIN_REF_TOL["dreamddp"]["loss_rtol"]:
-        raise RuntimeError(f"moe_reference fit: losses {lc} vs {lp}")
+            or loss_err > TRAIN_REF_TOL[algo]["loss_rtol"]:
+        raise RuntimeError(f"{phase} {algo} fit: losses {lc} vs {lp}")
     n_leaves = len(tree_leaves(params))
-    if counts["fused_adamw"] != n_leaves * 4:
-        raise RuntimeError(f"moe_reference fit: launches {counts}, want "
-                           f"{n_leaves} fused AdamW a step")
-    out["fit"] = {"steps": 4, "fingerprint": fit_card.plan.fingerprint(),
-                  "losses_card": lc.tolist(), "max_loss_rel_err": loss_err,
-                  "launches": counts}
+    int8 = algo == "dreamddp-int8"
+    int8_ran = counts["quantize_rows"] > 0 and counts["dequantize_rows"] > 0
+    if counts["fused_adamw"] != n_leaves * 4 or int8_ran != int8:
+        raise RuntimeError(f"{phase} {algo} fit: launches {counts}, want "
+                           f"{n_leaves} fused AdamW a step"
+                           f"{' and the int8 kernels' * int8}")
+    return {"steps": 4, "fingerprint": fit_card.plan.fingerprint(),
+            "losses_card": lc.tolist(), "max_loss_rel_err": loss_err,
+            "launches": counts}
+
+
+def moe_reference() -> dict:
+    """qwen3-moe SMOKE (float32), card (the flash and paged kernels, the
+    decode block as graph replays) against CPU (plain versions), same
+    weights: :func:`smoke_direct` (through both kernels on the card),
+    :func:`smoke_streams` and a ``dreamddp`` :func:`smoke_fit`."""
+    model = DecoderLM(qwen3_moe_30b_a3b.SMOKE)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    params = _to(cpu_params, "cuda")
+    f0, p0 = flash_attention.launches, paged_attention.launches
+    out, rng = smoke_direct(model, params, cpu_params, "moe_reference", 12)
+    if flash_attention.launches == f0 or paged_attention.launches == p0:
+        raise RuntimeError("moe_reference did not go through both kernels")
+    out["stream_tokens_equal"] = smoke_streams(
+        model, params, cpu_params, "moe_reference", rng)
+    out["fit"] = smoke_fit("qwen3-moe-30b-a3b", "dreamddp", params,
+                           cpu_params, "moe_reference")
     return out
 
 
@@ -2272,6 +2322,163 @@ def moe_serve() -> tuple[dict, dict]:
     })
     profile = profile_decode(model, params, SERVE_ENGINE,
                              phase="moe_profile")
+    del model, params
+    _free()
+    return result, profile
+
+
+# ---------------------------------------------------------------- MLA
+
+# deepseek-v3-671b at published widths, depth cut 61 -> 4: 3 dense blocks
+# (d_ff 18432), 1 MoE block (256 experts top-8, a shared expert) and the
+# MTP block, MLA of 128 heads throughout; bf16
+MLA_MODEL = dataclasses.replace(deepseek_v3_671b.CONFIG, n_layers=4)
+MLA_PARAMS = 26_721_155_072
+# mla_reference's fits, each held to its TRAIN_REF_TOL
+MLA_FIT_ALGOS = ("dreamddp", "dreamddp-int8")
+# the absorbed decode against the expanded forward at published widths,
+# float32 on the card (no TF32: torch's default for matmuls): the two
+# associate the same products differently (q·(W_uk·c) against (q·W_uk)·c,
+# and the combine through W_uv after or before the probabilities), each
+# float32 sum of up to 16384 terms off by ~1e-6 of its magnitude
+MLA_ABSORB_TOL = (1e-4, 1e-4)                        # atol, rtol
+
+
+def mla_absorbed_check() -> dict:
+    """One MLA layer of deepseek-v3 at published widths (128 heads,
+    ranks 1536 / 512, nope 128, rope 64, v 128; 187M float32 parameters,
+    0.75 GB) on the card: the absorbed decode of a token against the
+    latents of the positions before it, on the contiguous and the paged
+    layout, equals the expanded forward's output at that position, for
+    two lanes at different positions (a masked tail in one)."""
+    cfg, d = MLA_MODEL.mla, MLA_MODEL.d_model
+    gen = torch.Generator("cuda").manual_seed(0)
+    p = mla_mod.mla_init(gen, cfg, d, dtype=torch.float32)
+    n = count_params(p)
+    if n != mla_mod.mla_param_count(cfg, d):
+        raise RuntimeError(f"MLA parameters {n}")
+    b, s, ps = 2, 256, 16
+    x = torch.randn((b, s, d), generator=gen, device="cuda")
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    at = torch.tensor([s - 1, 100], dtype=torch.int32, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    out = {"phase": "mla_absorbed", "params": n, "bytes": 4 * n,
+           "lanes_at": at.tolist(), "tol": MLA_ABSORB_TOL}
+    with torch.no_grad():
+        full, lat = mla_mod.mla_apply_full(p, cfg, x, pos)
+        want = full[rows, at.long()].cpu()
+        xt = x[rows, at.long()][:, None]
+        cache = {k: v.clone() for k, v in lat.items()}
+        for k, v in cache.items():       # each lane holds [0, at) only
+            v[pos >= at[:, None]] = 0
+        got, _ = mla_mod.mla_decode(p, cfg, xt, cache, at)
+        nb = s // ps
+        bt = torch.arange(1, 1 + b * nb, dtype=torch.int32,
+                          device="cuda").reshape(b, nb)
+        pages = {k: torch.cat([torch.zeros_like(v[0, :ps])[None],
+                               v.reshape(b * nb, ps, -1)])
+                 for k, v in lat.items()}
+        got_paged, _ = mla_mod.mla_decode_paged(
+            p, cfg, xt, pages, bt, at,
+            torch.ones(b, dtype=torch.bool, device="cuda"))
+    for name, g in (("contiguous", got), ("paged", got_paged)):
+        err, excess = _max_excess(g[:, 0], want, MLA_ABSORB_TOL)
+        if excess > 0 or not torch.isfinite(g).all():
+            raise RuntimeError(f"mla_absorbed {name}: differs by {err}")
+        out[f"max_abs_err_{name}"] = err
+    out["max_abs_expanded"] = want.abs().max().item()
+    del p, x, full, lat, cache, pages
+    _free()
+    return out
+
+
+def mla_reference() -> dict:
+    """deepseek-v3 SMOKE (float32: MLA, the sigmoid MoE with a shared
+    expert, MTP), card against CPU, same weights: :func:`smoke_direct`
+    (the loss with MTP), :func:`smoke_streams` with the MLA engines
+    holding no paged-kernel scratch, :func:`smoke_fit` under
+    ``dreamddp`` and ``dreamddp-int8``; neither attention kernel
+    launched in the phase; then :func:`mla_absorbed_check` at published
+    widths."""
+    attn0 = (flash_attention.launches, paged_attention.launches)
+    model = DecoderLM(deepseek_v3_671b.SMOKE)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    params = _to(cpu_params, "cuda")
+    out, rng = smoke_direct(model, params, cpu_params, "mla_reference", 13)
+    scratch = ServeEngine(model, params, EngineConfig(
+        max_batch=4, max_seq=32, kv_backend="paged", page_size=8),
+        device="cuda")._attn_scratch
+    if scratch is not None:
+        raise RuntimeError("mla_reference: the MLA engine allocated the "
+                           "paged kernel's scratch")
+    out["stream_tokens_equal"] = smoke_streams(
+        model, params, cpu_params, "mla_reference", rng)
+    out["fit"] = {algo: smoke_fit("deepseek-v3-671b", algo, params,
+                                  cpu_params, "mla_reference")
+                  for algo in MLA_FIT_ALGOS}
+    attn = (flash_attention.launches, paged_attention.launches)
+    if attn != attn0:
+        raise RuntimeError(f"mla_reference: attention kernels launched "
+                           f"(flash, paged) {attn0} -> {attn}")
+    del params, cpu_params
+    _free()
+    out["absorbed"] = mla_absorbed_check()
+    return out
+
+
+def mla_serve() -> tuple[dict, dict]:
+    """deepseek-v3-671b at published widths, depth 4 (3 dense + 1 MoE
+    block + MTP; random bf16 weights): the serve phase's requests and
+    engine, neither attention kernel launched; then its decode blocks
+    under the profiler.  Returns (serve result, profile)."""
+    model = DecoderLM(MLA_MODEL)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n = count_params(params)
+    if not n == model.param_count() == MLA_PARAMS:
+        raise RuntimeError(f"deepseek-v3 parameters: {n}, the config counts "
+                           f"{model.param_count()}, want {MLA_PARAMS}")
+    attn0 = (flash_attention.launches, paged_attention.launches)
+    common, engine, _ = drive_serve(model, params, SERVE_ENGINE,
+                                    serve_requests, {})
+    if engine._attn_scratch is not None \
+            or common["graphs_captured"] != 2 or any(
+                held for held in engine.block_stats.captured_launches
+                .values()) \
+            or (flash_attention.launches,
+                paged_attention.launches) != attn0:
+        raise RuntimeError(
+            f"mla_serve: scratch {engine._attn_scratch is not None}, "
+            f"graphs {common['graphs_captured']} holding "
+            f"{engine.block_stats.captured_launches}, attention launches "
+            f"{attn0} -> {(flash_attention.launches, paged_attention.launches)}")
+    # what a tick must read: every weight but the embedding table (of
+    # which it reads 8 rows) and the MTP block (training only), every
+    # expert included (the dense dispatch runs each expert on its
+    # capacity slots); the latent KV read (at most the pool's few MB)
+    # left out
+    weight_bytes = sum(_nbytes(t) for t in tree_leaves(params)) \
+        - _nbytes(params["embed"]["table"]) \
+        - sum(_nbytes(t) for t in tree_leaves(params["mtp"]))
+    expert_bytes = sum(_nbytes(params["blocks"]["mlp"][k])
+                       for k in ("gate", "up", "down"))
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    result = {
+        "phase": "mla_serve", **common,
+        "experts": model.cfg.moe.n_experts, "top_k": model.cfg.moe.top_k,
+        "mla_heads": model.cfg.mla.n_heads,
+        "peak_pages_in_use": engine.pool.peak_pages_in_use,
+        "peak_kv_bytes": engine.pool.peak_kv_bytes(),
+        "pool_bytes": engine.pool.kv_bytes(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "tick_weight_bytes": weight_bytes,
+        "tick_expert_bytes": expert_bytes,
+        "bound_ms_per_tick": bound_ms,
+        "share_of_bound": bound_ms / common["ms_per_decode_tick"],
+    }
+    del engine
+    _free()
+    profile = profile_decode(model, params, SERVE_ENGINE,
+                             phase="mla_profile")
     del model, params
     _free()
     return result, profile
@@ -2430,6 +2637,18 @@ def main() -> int:
     emit(result)
     emit(profile)
     rows += kernel_rows(kernels, result["launches"], "moe_serve")
+
+    result = mla_reference()
+    emit(result)
+    _free()
+    for row in rows:            # the MLA slice's fits ran the train kernels
+        if row["path"] == "train":
+            row["launches_mla_reference"] = {
+                algo: fit["launches"][row["name"]]
+                for algo, fit in result["fit"].items()}
+    result, profile = mla_serve()
+    emit(result)
+    emit(profile)
 
     emit({"kernels": rows})
     print(smi, flush=True)

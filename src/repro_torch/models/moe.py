@@ -24,8 +24,6 @@ One-hots are built by comparing with an ``arange``: a dropped token's
 out-of-range slot index ``c`` then gives a zero row, as
 ``jax.nn.one_hot`` does (``torch.nn.functional.one_hot`` raises on it),
 with no host check, so the layer runs inside a CUDA graph capture.
-``torch.topk`` does not promise the lower index first on ties, as
-``jax.lax.top_k`` does (ROADMAP.md C7).
 """
 
 from __future__ import annotations
@@ -92,7 +90,10 @@ def _route(cfg: MoEConfig, logits: torch.Tensor
         scores = torch.sigmoid(logits)
     else:
         raise ValueError(cfg.router)
-    w, idx = torch.topk(scores, cfg.top_k, dim=-1)
+    # jax.lax.top_k's order: the lower index first on ties (a stable
+    # descending sort; torch.topk promises no order among equal scores)
+    w, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    w, idx = w[..., :cfg.top_k], idx[..., :cfg.top_k]
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
     if cfg.router == "sigmoid":
         w = w * cfg.routed_scale

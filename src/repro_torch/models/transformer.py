@@ -1,33 +1,35 @@
-"""Decoder-only LM: dense GQA and MoE (SwiGLU/GELU, RMSNorm/LayerNorm,
-RoPE).
+"""Decoder-only LM: dense GQA, MoE and MLA (SwiGLU/GELU,
+RMSNorm/LayerNorm, RoPE), with DeepSeek-V3's multi-token prediction.
 
-Counterpart of ``repro.models.transformer`` without MLA and multi-token
-prediction.  The model is functional: it holds only its config, and
-every method takes the parameter dict, which keeps the reference layout
-— ``embed`` / [``dense_blocks``] / ``blocks`` / ``head``, block groups
-stacked ``[layers, ...]`` (:meth:`LMConfig.runs`: a dense model has one
-``blocks`` group of dense blocks; an MoE model an optional leading
-``dense_blocks`` group and a ``blocks`` group of MoE blocks) — so trees
-carry across with :mod:`repro_torch.convert`.  ``lax.scan`` over each
-group becomes a Python loop over its stacked axis.
+Counterpart of ``repro.models.transformer``.  The model is functional:
+it holds only its config, and every method takes the parameter dict,
+which keeps the reference layout — ``embed`` / [``dense_blocks``] /
+``blocks`` / [``mtp``] / ``head``, block groups stacked ``[layers,
+...]`` (:meth:`LMConfig.runs`: a dense model has one ``blocks`` group
+of dense blocks; an MoE model an optional leading ``dense_blocks`` group
+and a ``blocks`` group of MoE blocks; ``mtp`` is one unstacked block of
+the last group's kind with its projection and norm) — so trees carry
+across with :mod:`repro_torch.convert`.  ``lax.scan`` over each group
+becomes a Python loop over its stacked axis.
 
-Caches are dicts ``{group: {"k", "v"}}`` of real zero tensors ``[layers,
-batch, max_seq, n_kv, hd]`` (contiguous) or ``[layers, n_pages,
-page_size, n_kv, hd]`` (paged pool), one entry per block group.
-Prefill and decode write them **in place** and return the same dict
-(the reference returns a new one): a full-width pool is too large to
-copy per token.
+Caches are dicts with one entry per block group of real zero tensors:
+GQA ``{"k", "v"}`` ``[layers, batch, max_seq, n_kv, hd]`` (contiguous)
+or ``[layers, n_pages, page_size, n_kv, hd]`` (paged pool); MLA the
+latents ``{"c_kv": [layers, ..., r_kv], "k_rope": [layers, ...,
+rope]}`` in the same two layouts.  Prefill and decode write them **in
+place** and return the same dict (the reference returns a new one): a
+full-width pool is too large to copy per token.
 
-Prefill attention goes through the flash kernel (CUDA on the card, its
-plain version on the CPU); paged decode goes through the paged kernel.
-Contiguous decode, ``apply`` and the training ``loss`` use the plain
-:func:`~repro_torch.models.layers.gqa_attention`, as the reference does
-(it trains on jnp attention outside any Pallas kernel, ROADMAP.md C3).
-With ``remat`` each block of the training forward is recomputed in the
+GQA prefill attention goes through the flash kernel (CUDA on the card,
+its plain version on the CPU); GQA paged decode goes through the paged
+kernel.  Contiguous decode, ``apply`` and the training ``loss`` use the
+plain :func:`~repro_torch.models.layers.gqa_attention`, as the
+reference does (it trains on jnp attention outside any Pallas kernel,
+ROADMAP.md C3).  MLA runs :mod:`repro_torch.models.mla` in every mode
+(torch operations; neither attention kernel applies to it).  With
+``remat`` each block of the training forward is recomputed in the
 backward pass (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``; no RNG state is saved, as the model draws none).
-
-MLA and multi-token prediction (deepseek-v3) are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ from ..kernels.paged_attention import paged_attention, write_token_to_pages
 from .layers import (apply_rope, dense, dense_init, embed, embed_init,
                      gqa_attention, layer_norm, mlp_apply, mlp_init,
                      norm_init, rms_norm, rope_freqs, softmax_xent)
+from .mla import (MLAConfig, mla_apply_full, mla_decode, mla_decode_paged,
+                  mla_fwd_flops, mla_init, mla_init_cache,
+                  mla_init_paged_cache, mla_param_count)
 from .moe import (MoEConfig, moe_active_param_count, moe_apply, moe_fwd_flops,
                   moe_init, moe_param_count)
 
@@ -75,8 +80,9 @@ class LMConfig:
     moe: MoEConfig | None = None
     n_dense_layers: int = 0               # leading dense layers (dsv3: 3)
     dense_d_ff: int | None = None
-    # MLA / MTP: not ported yet (DecoderLM raises)
-    mla: Any = None
+    # MLA
+    mla: MLAConfig | None = None
+    # Multi-token prediction (dsv3)
     mtp: bool = False
     mtp_weight: float = 0.3
 
@@ -107,30 +113,26 @@ def _layer(tree: Tree, i: int) -> Tree:
 
 
 class DecoderLM:
-    """Functional decoder LM, dense or MoE (init / apply / loss / prefill
-    / decode, contiguous and paged; unit layout and analytic costs for
-    the planner)."""
+    """Functional decoder LM, dense, MoE or MLA (init / apply / loss /
+    prefill / decode, contiguous and paged; unit layout and analytic
+    costs for the planner)."""
 
     # cache entries are addressed by position and masked by valid length,
     # so right-padded (chunked) prefill cannot leak into decode
     kv_position_indexed = True
-    # GQA stores position-addressed KV, so the cache can live in pages
+    # GQA and MLA store position-addressed KV (heads or latents), so the
+    # cache can live in pages
     supports_paged_kv = True
 
     def __init__(self, cfg: LMConfig):
-        if cfg.mla is not None or cfg.mtp:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA and multi-token prediction are not "
-                "ported to repro_torch yet (ROADMAP.md queue A item 9)")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ init
-    def _group_init(self, g: torch.Generator, kind: str, n: int) -> Tree:
-        """One block group's parameters, stacked ``[n, ...]``."""
+    def _attn_init(self, g: torch.Generator, stack: tuple) -> Tree:
         cfg = self.cfg
         dt, d, hd, dev = cfg.dtype, cfg.d_model, cfg.hd, g.device
-        ln_bias = cfg.norm_kind == "layernorm"
-        stack = (n,)
+        if cfg.mla is not None:
+            return mla_init(g, cfg.mla, d, dtype=dt, stack=stack)
         attn = {
             "wq": dense_init(g, d, cfg.n_heads * hd, bias=cfg.qkv_bias,
                              dtype=dt, stack=stack),
@@ -144,6 +146,15 @@ class DecoderLM:
         if cfg.qk_norm:
             attn["q_norm"] = norm_init(hd, dtype=dt, stack=stack, device=dev)
             attn["k_norm"] = norm_init(hd, dtype=dt, stack=stack, device=dev)
+        return attn
+
+    def _block_init(self, g: torch.Generator, kind: str,
+                    stack: tuple = ()) -> Tree:
+        """One block's parameters, or a group's stacked ``[*stack, ...]``."""
+        cfg = self.cfg
+        dt, d, dev = cfg.dtype, cfg.d_model, g.device
+        ln_bias = cfg.norm_kind == "layernorm"
+        attn = self._attn_init(g, stack)
         if kind == "moe":
             mlp = moe_init(g, cfg.moe, d, dtype=dt, stack=stack)
         else:
@@ -161,11 +172,17 @@ class DecoderLM:
     def init(self, generator: torch.Generator) -> Tree:
         """Random parameters on ``generator``'s device, in the reference
         layout and scales (the draws differ from JAX's): each block group
-        of :meth:`LMConfig.runs`, the head, then the embedding."""
+        of :meth:`LMConfig.runs`, the MTP module, the head, then the
+        embedding."""
         cfg = self.cfg
         g, dt, d = generator, cfg.dtype, cfg.d_model
-        groups = {group: self._group_init(g, kind, n)
+        groups = {group: self._block_init(g, kind, (n,))
                   for group, kind, n in cfg.runs()}
+        if cfg.mtp:
+            groups["mtp"] = {
+                "block": self._block_init(g, cfg.runs()[-1][1]),
+                "proj": dense_init(g, 2 * d, d, dtype=dt),
+                "norm": norm_init(d, dtype=dt, device=g.device)}
         head = {"norm": norm_init(d, dtype=dt,
                                   bias=cfg.norm_kind == "layernorm",
                                   device=g.device)}
@@ -190,6 +207,18 @@ class DecoderLM:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         return q, k, v
+
+    def _attend_full(self, p, h, positions):
+        """Causal self-attention of a whole sequence (no cache)."""
+        cfg = self.cfg
+        if cfg.mla is not None:
+            return mla_apply_full(p, cfg.mla, h, positions)[0]
+        b, s, _ = h.shape
+        q, k, v = self._project_qkv(p, h, positions)
+        out = gqa_attention(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=True,
+                            window=cfg.window)
+        return out.reshape(b, s, -1) @ p["wo"]["w"]
 
     def _norm(self, p, x):
         return (rms_norm(p, x) if self.cfg.norm_kind == "rmsnorm"
@@ -229,18 +258,13 @@ class DecoderLM:
     def _backbone(self, params, tokens, positions=None, *,
                   remat: bool = False) -> torch.Tensor:
         """Embed + block stack -> final hidden states ``[b, s, d]``."""
-        cfg = self.cfg
         x = embed(params["embed"], tokens)
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
 
         def attend(_group, _i, p, h):
-            q, k, v = self._project_qkv(p, h, positions)
-            out = gqa_attention(q, k, v, q_positions=positions,
-                                kv_positions=positions, causal=True,
-                                window=cfg.window)
-            return out.reshape(b, s, -1) @ p["wo"]["w"]
+            return self._attend_full(p, h, positions)
 
         return self._blocks(params, x, attend, remat=remat)
 
@@ -252,27 +276,65 @@ class DecoderLM:
     def loss(self, params, batch, *,
              segment_cuts: tuple[int, ...] = ()) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch = {tokens, labels}``
-        (``[b, s]`` each), float32.
+        (``[b, s]`` each), float32; with ``mtp``, plus ``mtp_weight``
+        times the multi-token-prediction loss.
 
         ``segment_cuts`` is accepted for the reference's signature: there
         it splits the layer scan so XLA can overlap a phase's sync with
         the remaining backward; in eager PyTorch it has no numeric effect
         (the overlap it serves is ROADMAP.md queue A item 6)."""
         del segment_cuts
+        cfg = self.cfg
         x = self._backbone(params, batch["tokens"],
-                           remat=self.cfg.remat and torch.is_grad_enabled())
+                           remat=cfg.remat and torch.is_grad_enabled())
         logits = self._head(params, x)
         labels = batch["labels"]
-        return softmax_xent(logits[:, :-1], labels[:, 1:])
+        loss = softmax_xent(logits[:, :-1], labels[:, 1:])
+        if cfg.mtp:
+            loss = loss + cfg.mtp_weight * self._mtp_loss(params, x, batch)
+        return loss
+
+    def _mtp_loss(self, params, trunk_h, batch) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: one extra block predicts
+        token ``t+2`` from ``[norm(h_t) ; E(tok_{t+1})]`` (the trunk is
+        shared), as the reference, which does not remat this block."""
+        tokens, labels = batch["tokens"], batch["labels"]
+        b, s, _ = trunk_h.shape
+        positions = torch.arange(s - 1, device=trunk_h.device).expand(
+            b, s - 1)
+        mtp = params["mtp"]
+        nxt = embed(params["embed"], tokens[:, 1:])
+        h = torch.cat([self._norm(mtp["norm"], trunk_h[:, :-1]), nxt], -1)
+        h = dense(mtp["proj"], h)
+
+        def attend(_group, _i, p, x):
+            return self._attend_full(p, x, positions)
+
+        h = self._block(attend, "mtp", self.cfg.runs()[-1][1], None,
+                        mtp["block"], h)
+        logits = self._head(params, h)
+        return softmax_xent(logits[:, :-1], labels[:, 2:])
 
     # --------------------------------------------------------------- serving
-    def _kv(self, lead: tuple[int, ...], *, device) -> Tree:
-        """Zero k/v per block group, ``[layers, *lead, n_kv, hd]``."""
+    def _kv(self, lead: tuple[int, int], *, device, paged: bool = False
+            ) -> Tree:
+        """Zero cache per block group, ``[layers, *lead, ...]``: GQA k/v
+        ``[..., n_kv, hd]``, MLA latents ``c_kv [..., r_kv]`` and
+        ``k_rope [..., rope]``."""
         cfg = self.cfg
-        return {group: {
-            name: torch.zeros((n, *lead, cfg.n_kv_heads, cfg.hd),
-                              dtype=cfg.dtype, device=device)
-            for name in ("k", "v")} for group, _kind, n in cfg.runs()}
+        out = {}
+        for group, _kind, n in cfg.runs():
+            if cfg.mla is not None:
+                make = mla_init_paged_cache if paged else mla_init_cache
+                one = make(cfg.mla, *lead, cfg.dtype, device=device)
+                out[group] = {k: v.expand(n, *v.shape).contiguous()
+                              for k, v in one.items()}
+            else:
+                out[group] = {
+                    name: torch.zeros((n, *lead, cfg.n_kv_heads, cfg.hd),
+                                      dtype=cfg.dtype, device=device)
+                    for name in ("k", "v")}
+        return out
 
     def init_cache(self, batch: int, max_seq: int, *, device) -> Tree:
         return self._kv((batch, max_seq), device=device)
@@ -293,6 +355,11 @@ class DecoderLM:
         positions = torch.arange(s, device=x.device).expand(b, s)
 
         def attend(group, i, p, h):
+            if cfg.mla is not None:      # a full pass, then its latents
+                out, fresh = mla_apply_full(p, cfg.mla, h, positions)
+                for name, t in fresh.items():
+                    cache[group][name][i, :, :s] = t
+                return out
             q, k, v = self._project_qkv(p, h, positions)
             cache[group]["k"][i, :, :s] = k
             cache[group]["v"][i, :, :s] = v
@@ -313,6 +380,12 @@ class DecoderLM:
         """
         cfg = self.cfg
         x = embed(params["embed"], token)
+        if cfg.mla is not None:
+            def mla(group, i, p, h):
+                return mla_decode(p, cfg.mla, h, _layer(cache[group], i),
+                                  pos)[0]
+
+            return self._head(params, self._blocks(params, x, mla)), cache
         b = x.shape[0]
         max_seq = cache["blocks"]["k"].shape[2]
         positions = pos[:, None]
@@ -338,9 +411,9 @@ class DecoderLM:
     def init_paged_cache(self, n_pages: int, page_size: int, *,
                          device) -> Tree:
         """Global KV page pool, per block group ``[layers, n_pages,
-        page_size, n_kv, hd]`` for k and v; page 0 is the pool's trash
-        page."""
-        return self._kv((n_pages, page_size), device=device)
+        page_size, ...]`` (GQA k and v ``[..., n_kv, hd]``, MLA latents);
+        page 0 is the pool's trash page."""
+        return self._kv((n_pages, page_size), device=device, paged=True)
 
     def decode_step_paged(self, params, pages, token, pos, block_tables,
                           active, *, attn_scratch=None
@@ -354,10 +427,20 @@ class DecoderLM:
         the block table with the paged kernel (``attn_scratch``: the
         caller's own split-K scratch, see
         :func:`~repro_torch.kernels.paged_attention.ops.launch_scratch`).
-        Returns (logits ``[slots, 1, vocab]``, pages).
+        MLA writes its latents into the pages and attends their gathered
+        stream (:func:`~repro_torch.models.mla.mla_decode_paged`; no
+        kernel, no scratch).  Returns (logits ``[slots, 1, vocab]``,
+        pages).
         """
         cfg = self.cfg
         x = embed(params["embed"], token)
+        if cfg.mla is not None:
+            def mla(group, i, p, h):
+                return mla_decode_paged(p, cfg.mla, h,
+                                        _layer(pages[group], i),
+                                        block_tables, pos, active)[0]
+
+            return self._head(params, self._blocks(params, x, mla)), pages
         b = x.shape[0]
         positions = pos[:, None]
         kv_len = pos + 1
@@ -378,13 +461,16 @@ class DecoderLM:
     # ------------------------------------------------------------- structure
     def unit_layout(self) -> UnitLayout:
         """Schedulable units in network order: ``embed``, one per layer
-        of each block group (numbered across groups), ``head``."""
+        of each block group (numbered across groups), [``mtp``],
+        ``head``."""
         entries = [UnitEntry("embed", "embed", None)]
         gi = 0
         for group, _kind, n in self.cfg.runs():
             entries += [UnitEntry(f"layer_{gi + i}", group, i)
                         for i in range(n)]
             gi += n
+        if self.cfg.mtp:
+            entries.append(UnitEntry("mtp", "mtp", None))
         entries.append(UnitEntry("head", "head", None))
         return UnitLayout(tuple(entries))
 
@@ -392,12 +478,15 @@ class DecoderLM:
     def _block_param_count(self, kind: str) -> int:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
-        attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
-            + cfg.n_heads * hd * d
-        if cfg.qkv_bias:
-            attn += hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
-        if cfg.qk_norm:
-            attn += 2 * hd
+        if cfg.mla is not None:
+            attn = mla_param_count(cfg.mla, d)
+        else:
+            attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+                + cfg.n_heads * hd * d
+            if cfg.qkv_bias:
+                attn += hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
+            if cfg.qk_norm:
+                attn += 2 * hd
         norms = 2 * d * (2 if cfg.norm_kind == "layernorm" else 1)
         if kind == "moe":
             mlp = moe_param_count(cfg.moe, d)
@@ -411,6 +500,9 @@ class DecoderLM:
         n = cfg.vocab * cfg.d_model                       # embed
         for _group, kind, cnt in cfg.runs():
             n += cnt * self._block_param_count(kind)
+        if cfg.mtp:
+            n += self._block_param_count(cfg.runs()[-1][1]) \
+                + 2 * cfg.d_model * cfg.d_model + cfg.d_model
         n += cfg.d_model                                  # final norm
         if not cfg.tie_embeddings:
             n += cfg.d_model * cfg.vocab
@@ -436,11 +528,15 @@ class DecoderLM:
                          kv_len: int) -> float:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
-        proj = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
-            + cfg.n_heads * hd * d
-        att_len = kv_len if cfg.window is None else min(kv_len, cfg.window)
-        attn = 2.0 * tokens * proj \
-            + 2.0 * tokens * att_len * cfg.n_heads * hd * 2
+        if cfg.mla is not None:
+            attn = mla_fwd_flops(cfg.mla, d, tokens, kv_len)
+        else:
+            proj = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+                + cfg.n_heads * hd * d
+            att_len = kv_len if cfg.window is None \
+                else min(kv_len, cfg.window)
+            attn = 2.0 * tokens * proj \
+                + 2.0 * tokens * att_len * cfg.n_heads * hd * 2
         if kind == "moe":
             mlp = moe_fwd_flops(cfg.moe, d, tokens, seq)
         else:
@@ -466,6 +562,13 @@ class DecoderLM:
             per_f = self._block_fwd_flops(kind, tokens, seq, seq)
             out += [(f"layer_{gi + i}", per_p, per_f) for i in range(cnt)]
             gi += cnt
+        if cfg.mtp:
+            kind = cfg.runs()[-1][1]
+            d = cfg.d_model
+            out.append(("mtp",
+                        float(self._block_param_count(kind) + 2 * d * d),
+                        self._block_fwd_flops(kind, tokens, seq, seq)
+                        + 2.0 * tokens * 2 * d * d))
         head_p = float(cfg.d_model + (0 if cfg.tie_embeddings
                                       else cfg.d_model * cfg.vocab))
         out.append(("head", head_p, 2.0 * tokens * cfg.d_model * cfg.vocab))

@@ -1,12 +1,12 @@
 """ServeEngine — continuous-batching inference over a slot-pooled cache.
 
-Counterpart of ``repro.serve.engine`` for the dense decoder (both cache
-backends) and Mamba-2 (the contiguous backend: its lanes are a fixed
-conv window and SSM state, with nothing to page).  Requests
-are data (:class:`~repro_torch.serve.types.Request`), admission is the
-:class:`~repro_torch.serve.scheduler.Scheduler`'s, and decoding runs
-``decode_block`` slot-wide ticks between scheduler interventions, with
-per-slot EOS and length masking.
+Counterpart of ``repro.serve.engine`` for the decoder LM (dense, MoE
+and MLA; both cache backends) and Mamba-2 (the contiguous backend: its
+lanes are a fixed conv window and SSM state, with nothing to page).
+Requests are data (:class:`~repro_torch.serve.types.Request`),
+admission is the :class:`~repro_torch.serve.scheduler.Scheduler`'s, and
+decoding runs ``decode_block`` slot-wide ticks between scheduler
+interventions, with per-slot EOS and length masking.
 
 **The decode block.**  The reference runs a block as one jitted
 ``lax.while_loop`` that exits once no lane is active.  Here one body
@@ -33,9 +33,9 @@ the engine runs the body eagerly on CUDA only when built with
 graph reads stays at its address for the engine's life: the parameters
 (``reset(params=...)`` copies new values into the same tensors), the
 pool, the state buffers and the paged kernel's split-K scratch, which
-the engine owns.  :attr:`ServeEngine.block_stats` records the graphs,
-their capture time, the kernel launches each graph holds, and the blocks
-and ticks run.
+the engine owns (none for MLA, whose paged decode runs no kernel).
+:attr:`ServeEngine.block_stats` records the graphs, their capture time,
+the kernel launches each graph holds, and the blocks and ticks run.
 
 Admission: with ``batched_admission`` (the default) each tick's
 admissions are grouped by prefill bucket, each group prefills in one
@@ -240,8 +240,9 @@ class ServeEngine:
         if self._paged:
             self._block_tables = torch.zeros(self.pool.block_tables.shape,
                                              dtype=torch.int32, device=dev)
-            if dev.type == "cuda":
-                cfg = model.cfg
+            cfg = model.cfg
+            # MLA's paged decode attends gathered latents, not the kernel
+            if dev.type == "cuda" and getattr(cfg, "mla", None) is None:
                 self._attn_scratch = launch_scratch(
                     n, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                     self.pool.max_blocks, dev)

@@ -3,7 +3,8 @@
 granite-3-2b ``SMOKE`` (4 layers, d_model 64, 8/2 heads, head_dim 8,
 vocab 512, float32), a variant taking the branches granite does not, and
 the ``SMOKE`` configs of qwen3-moe-30b-a3b (MoE), qwen3-1.7b (qk-norm),
-phi4-mini-3.8b (GQA group 3) and qwen2.5-32b (QKV bias, untied head):
+phi4-mini-3.8b (GQA group 3), qwen2.5-32b (QKV bias, untied head) and
+deepseek-v3-671b (MLA latent caches, multi-token prediction in the loss):
 JAX ``DecoderLM(SMOKE).init(PRNGKey(0))`` is carried into the port with
 ``params_from_numpy`` and both models run the same numpy-made inputs.
 Tolerance ``atol=rtol=1e-4``: float32 matmuls sum in a different order
@@ -65,13 +66,14 @@ _VARIANT = dict(name="variant", n_layers=2, d_model=32, n_heads=4,
 
 # the archs this file holds at their SMOKE configs beside granite's
 NEW_ARCHS = ["qwen3-moe-30b-a3b", "qwen3-1.7b", "phi4-mini-3.8b",
-             "qwen2.5-32b"]
+             "qwen2.5-32b", "deepseek-v3-671b"]
 # published sizes, counted by the reference's formulas
 FULL_PARAMS = {"granite-3-2b": 2_533_531_648,
                "qwen3-moe-30b-a3b": 30_532_122_624,
                "qwen3-1.7b": 1_720_574_976,
                "phi4-mini-3.8b": 3_836_021_760,
-               "qwen2.5-32b": 32_763_876_352}
+               "qwen2.5-32b": 32_763_876_352,
+               "deepseek-v3-671b": 682_636_457_984}
 
 
 def _make_pair(name):
@@ -120,11 +122,7 @@ def test_config_matches_reference(arch, name):
 
 def test_unported_archs_and_features_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("deepseek-v3-671b")
-    for kw in ({"mla": object()}, {"mtp": True}):
-        cfg = dataclasses.replace(granite_3_2b.SMOKE, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecoderLM(cfg)
+        get_arch("recurrentgemma-9b")
 
 
 @pytest.mark.parametrize("arch", sorted(FULL_PARAMS))
@@ -301,7 +299,8 @@ def test_prefill_logits_and_cache_match(pair):
     _close(tlog, jlog)
     assert tc.keys() == jc.keys()
     for group in tc:
-        for name in ("k", "v"):
+        assert tc[group].keys() == jc[group].keys()
+        for name in tc[group]:
             _close(tc[group][name], jc[group][name])
 
 
@@ -315,7 +314,7 @@ def test_decode_step_matches(pair):
                               torch.from_numpy(pos))
     _close(tlog, jlog)
     for group in tc:
-        for name in ("k", "v"):
+        for name in tc[group]:
             _close(tc[group][name], jc[group][name])
 
 
@@ -333,7 +332,7 @@ def test_decode_step_per_lane_positions_match_vmapped_reference(pair):
                               torch.from_numpy(pos))
     _close(tlog[:, 0], jlog)
     for group in tc:
-        for name in ("k", "v"):
+        for name in tc[group]:
             _close(tc[group][name], jc[group][name])
 
 
@@ -343,9 +342,11 @@ def test_decode_step_paged_matches(pair):
     rng = np.random.default_rng(4)
     slots, ps, mb = 3, 4, 3
     n_pages = 1 + slots * mb
-    pages = {group: {n: rng.standard_normal(
-        (layers, n_pages, ps, cfg.n_kv_heads, cfg.hd), np.float32)
-        for n in ("k", "v")} for group, _kind, layers in cfg.runs()}
+    # random pages of the model's own layout (GQA k/v or MLA latents)
+    pages = {group: {n: rng.standard_normal(tuple(t.shape), np.float32)
+                     for n, t in leaves.items()}
+             for group, leaves in tm.init_paged_cache(
+                 n_pages, ps, device="meta").items()}
     bt = rng.permutation(np.arange(1, n_pages)).reshape(slots, mb) \
         .astype(np.int32)
     pos = np.array([5, 11, 0], np.int32)
@@ -361,7 +362,7 @@ def test_decode_step_paged_matches(pair):
         torch.from_numpy(active))
     _close(tlog, jlog)
     for group in pages:
-        for name in ("k", "v"):
+        for name in pages[group]:
             # page 0 is the trash page: written, never read
             _close(tpages[group][name][:, 1:],
                    np.asarray(jpages[group][name])[:, 1:])

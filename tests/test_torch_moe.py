@@ -7,7 +7,10 @@ own, carried across with ``params_from_numpy``.  Everything is float32.
   shared experts, at a capacity that really drops tokens (asserted),
   and its gradients: ``atol=rtol=1e-5`` (float32 sums in another order).
   The one-hot of a dropped token's out-of-range slot is a zero row, as
-  ``jax.nn.one_hot`` gives; capacities equal the reference's.
+  ``jax.nn.one_hot`` gives; capacities equal the reference's.  Exact
+  ties in the router scores (both routers, at the smoke geometry and at
+  deepseek-v3's 256 experts top-8) take the experts ``jax.lax.top_k``
+  takes, the lower index first: indices equal, outputs within ``1e-5``.
 * **The model** — a variant of qwen3-moe-30b-a3b ``SMOKE`` with one
   leading dense block (the ``dense_blocks`` group), a sigmoid router
   and a shared expert: logits, loss, gradients, prefill caches,
@@ -29,10 +32,11 @@ own, carried across with ``params_from_numpy``.  Everything is float32.
   and batches: plan fingerprints equal, per-step losses within
   ``rtol=1e-5``.
 
-On the card (``-m gpu``; skipped without CUDA): the paged and flash
-kernels at the MoE geometry (32/4 heads, head width 128) against their
-plain versions, and the MoE smoke's decode block as a CUDA graph
-replay, bitwise the eager block.  Run there with ``python -m pytest
+On the card (``-m gpu``; skipped without CUDA, and run there without
+JAX): the paged and flash kernels at the MoE geometry (32/4 heads, head
+width 128) against their plain versions, and the MoE smoke's decode
+block as a CUDA graph replay (the routing's stable sort captured),
+bitwise the eager block.  Run there with ``python -m pytest
 --noconftest -q -m gpu tests/test_torch_*.py``.
 """
 
@@ -42,13 +46,16 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
-jnp = jax.numpy
+try:
+    import jax
+    jnp = jax.numpy
+    from repro.configs import get_arch as jget_arch
+    from repro.models import moe as jmoe
+    from repro.models.layers import Init
+    from repro.models.transformer import DecoderLM as JDecoderLM
+except ImportError:     # the card's machine has no JAX: the gpu tests run
+    jax = None
 
-from repro.configs import get_arch as jget_arch  # noqa: E402
-from repro.models import moe as jmoe  # noqa: E402
-from repro.models.layers import Init  # noqa: E402
-from repro.models.transformer import DecoderLM as JDecoderLM  # noqa: E402
 from repro_torch.api import JobConfig, Session  # noqa: E402
 from repro_torch.configs import get_arch, qwen3_moe_30b_a3b  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
@@ -87,6 +94,20 @@ def _flat(tree, prefix=""):
 def _tokens(seed, shape, vocab):
     return np.random.default_rng(seed).integers(0, vocab, shape,
                                                 dtype=np.int32)
+
+
+@pytest.fixture(autouse=True)
+def _reference(request):
+    """Every test but the card's compares with the JAX package."""
+    if jax is None and request.node.get_closest_marker("gpu") is None:
+        pytest.skip("needs the JAX package (the reference)")
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The same skip for module-scoped fixtures, which come first."""
+    if jax is None:
+        pytest.skip("needs the JAX package (the reference)")
 
 
 # ---------------------------------------------------------------- the layer
@@ -153,6 +174,51 @@ def test_moe_apply_and_grads_match_reference_with_drops(router, n_shared):
         _close(gp[k], wp[k], 1e-5)
 
 
+# router columns drawn from 3 distinct columns of small dyadic values and
+# small-integer inputs: every logit is exact in float32 whatever the
+# summation order, so equal columns give exactly equal scores (ties at
+# the top-k boundary, asserted) on both sides; token 0 is all zeros, a
+# tie across every expert
+_TIE_GEOMETRY = {"smoke": dict(n_experts=8, top_k=2, d_ff=24),
+                 "dsv3": dict(n_experts=256, top_k=8, d_ff=8)}
+
+
+@pytest.mark.parametrize("geometry", sorted(_TIE_GEOMETRY))
+@pytest.mark.parametrize("router", ["softmax", "sigmoid"])
+def test_routing_ties_follow_jax_top_k(router, geometry):
+    """``jax.lax.top_k`` puts the lower index first on ties; the port's
+    routing takes the same experts in the same order (indices equal),
+    so ``moe_apply`` agrees within ``1e-5`` (float32 sums)."""
+    kw = dict(_TIE_GEOMETRY[geometry], n_shared=1, router=router,
+              routed_scale=2.5 if router == "sigmoid" else 1.0)
+    jcfg, tcfg = jmoe.MoEConfig(**kw), tmoe.MoEConfig(**kw)
+    d, b, s = 16, 2, 6
+    jp = jax.device_get(jmoe.moe_init(Init(jax.random.PRNGKey(5)), jcfg, d,
+                                      dtype=jnp.float32)[0])
+    rng = np.random.default_rng(6)
+    cols = rng.integers(-4, 5, (d, 3)).astype(np.float32) / 8
+    jp["router"]["w"] = cols[:, rng.integers(0, 3, jcfg.n_experts)]
+    x = rng.integers(-2, 3, (b, s, d)).astype(np.float32)
+    x[0, 0] = 0.0
+    logits = x @ jp["router"]["w"]
+
+    jw, jidx = jmoe._route(jcfg, jnp.asarray(logits))
+    tw, tidx = tmoe._route(tcfg, torch.from_numpy(logits))
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    _close(tw, jw, 1e-6)
+    k = jcfg.top_k
+    np.testing.assert_array_equal(tidx[0, 0].numpy(), np.arange(k))
+    scores = np.sort(np.asarray(torch.sigmoid(torch.from_numpy(logits))
+                                if router == "sigmoid" else
+                                torch.softmax(torch.from_numpy(logits), -1)),
+                     -1)[..., ::-1]
+    assert (scores[..., k - 1] == scores[..., k]).mean() > 0.5
+
+    want = jmoe.moe_apply(jp, jcfg, jnp.asarray(x))
+    _close(tmoe.moe_apply(params_from_numpy(jp, "cpu"), tcfg,
+                          torch.from_numpy(x)), want, 1e-5)
+
+
 def test_moe_init_layout_scales_and_counts():
     cfg = tmoe.MoEConfig(n_experts=6, top_k=2, d_ff=40, n_shared=1)
     p = tmoe.moe_init(torch.Generator().manual_seed(0), cfg, 32,
@@ -194,7 +260,7 @@ def _make(name):
 
 
 @pytest.fixture(scope="module")
-def made():
+def made(reference):
     """Each model pair, made once for the module on first use."""
     cache = {}
 

@@ -522,7 +522,7 @@ def test_what_is_not_ported_raises():
     sess = Session(JobConfig(**_job("dreamddp")), model=model, device="cpu")
     assert sess.simulate("churn").trace.n_periods > 0
     with pytest.raises(KeyError, match="ROADMAP"):
-        Session(JobConfig(arch="deepseek-v3-671b"), device="cpu").model
+        Session(JobConfig(arch="recurrentgemma-9b"), device="cpu").model
     from repro_torch.serve import ServeEngine
     assert isinstance(sess.serve(), ServeEngine)
     assert Session(JobConfig(algo="hier-2tier"), model=model,
