@@ -186,12 +186,41 @@ code is non-zero):
    bound (every weight but the embedding table and the MTP block) and
    its share; then ``mla_profile``, its decode blocks under
    ``torch.profiler``.
+23. ``kernel`` (Griffin geometry) — the flash kernel at recurrentgemma's
+   local MQA (16/1 heads, head_dim 256, window 2048, causal): b 1 x s
+   3072 (the window cuts inside a 32-key tile) and a ragged b 1 x s
+   1500 below the window, SDPA with ``enable_gqa`` and a boolean window
+   mask as the library time; the paged kernel over 8 lanes' rings of
+   2048 keys seen as 16-key pages (``RGLM.ring_table``, kv_len up to
+   3104 folded into (2048, 4096], the rings wrapped, lane 0 reading
+   page 0), in bf16 and float32, as in phase 3.
+24. ``rg_reference`` — recurrentgemma SMOKE (float32, window 8, GQA group
+   4, head_dim 8) on the card (flash prefill, paged ring decode) against
+   the CPU (plain versions), same weights: logits of the full forward,
+   of a 13-token prefill (over the window) and of 12 decode steps (the
+   rings wrap), and the loss, within ``RG_REF_TOL``; both attention
+   kernels launched; the contiguous engine's greedy streams (graphs on
+   the card) equal; a 4-step 2-worker ``Session.fit`` under
+   ``dreamddp`` and ``dreamddp-int8`` as in phase 21.
+25. ``rg_serve`` — recurrentgemma-9b at published widths and full depth
+   (38 layers: 12 superblocks of (rec, rec, attn) and a 2-layer tail;
+   8,578,519,040 random bf16 parameters from a seeded generator) serves
+   12 greedy requests (prompts of 64-3072 tokens, three over the
+   window, 32 new tokens each, one with an EOS) on the contiguous
+   backend (8 slots, max_seq 3200, decode block 8, graphs).  Launches
+   as in phase 6: flash 12 per prefill call, paged 12 x
+   ``decode_block`` a replay.  Beside the ms per tick, its byte bound
+   (every weight, the tied table read whole as the head, plus the ring
+   keys and values the live lanes read, reckoned from the requests) and
+   its share, the ring and state bytes; then ``rg_profile``, its decode
+   blocks under ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line (each kernel's cases, the path
 whose run gave its launches — ``serve``, ``train``, ``mamba2_serve``,
-``moe_serve`` — fused AdamW's on the async path too, as
+``moe_serve``, ``rg_serve`` — fused AdamW's on the async path too, as
 ``launches_async_train``, the training kernels' in ``mla_reference``'s
-fits as ``launches_mla_reference``, and ptxas's registers, shared
+and ``rg_reference``'s fits as ``launches_mla_reference`` and
+``launches_rg_reference``, and ptxas's registers, shared
 memory and spills for its source), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -221,7 +250,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.api import JobConfig, Session  # noqa: E402
 from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
                                  granite_3_2b, mamba2_780m,
-                                 qwen3_moe_30b_a3b)
+                                 qwen3_moe_30b_a3b, recurrentgemma_9b)
 from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
                                            worker_unstack)
 from repro_torch.kernels import _build  # noqa: E402
@@ -235,6 +264,7 @@ from repro_torch.kernels.ssd_scan import (ssd_chunk,  # noqa: E402
 from repro_torch.models.layers import count_params  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
+from repro_torch.models.rglru import RGLM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve import (EngineConfig, NaiveLoop, Request,  # noqa: E402
                                SamplingParams, ServeEngine)
@@ -418,9 +448,11 @@ def check_kernel(name: str, cases: list[dict] | None = None) -> dict:
     fn = KERNELS[name]["fn"]
     checks = []
     for geometry in cases or KERNELS[name]["cases"]:
+        geometry = dict(geometry)
+        make = geometry.pop("case", CASES[name])   # the kernel's default
         for dtype in DTYPES:
             args, kw, nbytes, flops, library, shape = \
-                CASES[name](dtype, **geometry)
+                make(dtype, **geometry)
             got = fn(*args, **kw, impl="cuda")
             want = fn(*args, **kw, impl="ref")
             want32 = fn(*map(_f32, args), **kw, impl="ref")
@@ -2214,14 +2246,15 @@ def smoke_direct(model, params, cpu_params, phase: str, seed: int
 
 
 def smoke_streams(model, params, cpu_params, phase: str,
-                  rng: np.random.Generator) -> dict:
-    """Greedy streams of the engine on paged and contiguous KV (graphs on
+                  rng: np.random.Generator,
+                  backends=("paged", "contiguous")) -> dict:
+    """Greedy streams of the engine on each of ``backends`` (graphs on
     the card), card against CPU: equal.  Returns tokens by backend."""
     prompts = [rng.integers(0, model.cfg.vocab, n).tolist()
                for n in (5, 9, 9, 14, 3, 20)]
     budgets = (6, 4, 8, 3, 7, 5)
     streams = {}
-    for backend in ("paged", "contiguous"):
+    for backend in backends:
         cfg = EngineConfig(max_batch=4, max_seq=32, decode_block=4,
                            kv_backend=backend, page_size=8)
         reqs = [Request(tokens=p, max_new_tokens=g)
@@ -2484,6 +2517,219 @@ def mla_serve() -> tuple[dict, dict]:
     return result, profile
 
 
+# ---------------------------------------------------------------- Griffin
+
+# recurrentgemma-9b at published widths and full depth: 12 superblocks of
+# (rec, rec, attn) and a 2-layer rec tail, local MQA of 16 heads over one
+# KV head of width 256 with a window of 2048, bf16
+RG_PARAMS = 8_578_519_040
+RG_HEADS = {"n_q": 16, "n_kv": 1, "hd": 256}
+RG_WINDOW = recurrentgemma_9b.CONFIG.window
+# rg_serve's prompts (three over the window, so prefill cuts it and the
+# rings wrap in decode; the first 8 fill the slots, the profile's too)
+RG_LENS = (3072, 64, 2304, 128, 256, 2560, 512, 1024, 384, 768, 1536, 2048)
+RG_ENGINE = EngineConfig(max_batch=8, max_seq=3200, decode_block=8)
+
+
+def ring_case(dtype, *, slots=8, window=RG_WINDOW, max_len=3104, seed=4,
+              n_q=16, n_kv=1, hd=256):
+    """Decode over each lane's ring of ``window`` keys seen as 16-key
+    pages, as ``RGLM.decode_step`` reads it: the model's own table
+    (``ring_table``) and ``kv_len`` folded into ``(window, 2 window]``;
+    ragged ``kv_len`` up to ``max_len`` (lane 0 at 1, reading page 0;
+    the last at ``max_len``, its ring wrapped)."""
+    model = RGLM(dataclasses.replace(recurrentgemma_9b.CONFIG,
+                                     window=window))
+    ps = model.ring_page
+    rng = np.random.default_rng(seed)
+    kv_len = rng.integers(1, max_len + 1, size=slots)
+    kv_len[0], kv_len[-1] = 1, max_len
+    fold = np.where(kv_len > window, (kv_len - 1) % window + 1 + window,
+                    kv_len)
+    dev = "cuda"
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+            .to(dev, dtype)
+
+    table = model.ring_table(slots, dev)
+    args = (rand(slots, n_q, hd), rand(slots * window // ps, ps, n_kv, hd),
+            rand(slots * window // ps, ps, n_kv, hd), table,
+            torch.tensor(fold, dtype=torch.int32, device=dev))
+    es = torch.tensor([], dtype=dtype).element_size()
+    tokens = int(np.minimum(kv_len, window).sum())
+    nbytes = (2 * slots * n_q * hd * es
+              + 2 * tokens * n_kv * hd * es
+              + table.numel() * 4 + slots * 4)
+    flops = 4.0 * n_q * hd * tokens
+    shape = (f"slots {slots}, {n_q}/{n_kv} heads, hd {hd}, rings of "
+             f"{window} as pages of {ps}, table {table.shape[1]}, kv_len <= "
+             f"{max_len} folded, window {window}")
+    return args, {"window": window}, nbytes, flops, None, shape
+
+
+RG_CASES = {
+    "flash_attention": [{"b": 1, "s": 3072, "window": RG_WINDOW,
+                         **RG_HEADS},
+                        {"b": 1, "s": 1500, "window": RG_WINDOW,
+                         **RG_HEADS}],
+    "paged_attention": [{"case": ring_case}],
+}
+# rg_reference, card (kernels) against CPU (plain versions), float32
+# smoke: logits and loss within atol + rtol * |cpu| (summation order of
+# the float32 matmuls and of the attention kernels, <= 2e-5 a call)
+RG_REF_TOL = (1e-4, 1e-4)
+RG_FIT_ALGOS = ("dreamddp", "dreamddp-int8")
+
+
+def _rg_direct(model, params, toks: np.ndarray, feed: np.ndarray,
+               device: str) -> dict:
+    """The smoke model on ``device`` outside the engine: logits of the
+    full forward, the loss, a prefill (flash kernel on the card) and
+    ``feed.shape[1]`` decode steps over the rings (paged kernel on the
+    card)."""
+    b, s = toks.shape
+    t = torch.from_numpy(toks).long().to(device)
+    out = {}
+    with torch.no_grad():
+        out["apply"] = model.apply(params, t)
+        out["loss"] = model.loss(params, {"tokens": t, "labels": t})
+        lg, cache = model.prefill(params, t, model.init_cache(
+            b, s + feed.shape[1], device=device))
+        steps = [lg]
+        for i in range(feed.shape[1]):
+            tok = torch.from_numpy(feed[:, i:i + 1]).long().to(device)
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=device)
+            lg, cache = model.decode_step(params, cache, tok, pos)
+            steps.append(lg)
+        out["prefill_decode"] = torch.cat(steps, 1)
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def rg_reference() -> dict:
+    """recurrentgemma SMOKE (float32), card (the flash and paged
+    kernels, the decode block as graph replays) against CPU (plain
+    versions), same weights: logits of the forward, of a prefill over
+    the window and of 12 decode steps (the rings wrap) and the loss
+    within ``RG_REF_TOL``, both kernels launched; the contiguous
+    engine's greedy streams equal; :func:`smoke_fit` under ``dreamddp``
+    and ``dreamddp-int8``."""
+    model = RGLM(recurrentgemma_9b.SMOKE)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(14)
+    toks = rng.integers(0, model.cfg.vocab, (3, 13)).astype(np.int64)
+    feed = rng.integers(0, model.cfg.vocab, (3, 12)).astype(np.int64)
+    f0, p0 = flash_attention.launches, paged_attention.launches
+    card = _rg_direct(model, params, toks, feed, "cuda")
+    launched = {"flash_attention": flash_attention.launches - f0,
+                "paged_attention": paged_attention.launches - p0}
+    if min(launched.values()) <= 0:
+        raise RuntimeError(f"rg_reference did not go through both kernels: "
+                           f"{launched}")
+    cpu = _rg_direct(model, cpu_params, toks, feed, "cpu")
+    out = {"phase": "rg_reference", "logit_tol": RG_REF_TOL,
+           "window": model.cfg.window, "prefill_len": toks.shape[1],
+           "decode_steps": feed.shape[1], "kernel_launches": launched}
+    for key in card:
+        err, excess = _max_excess(card[key], cpu[key], RG_REF_TOL)
+        if excess > 0 or not torch.isfinite(card[key]).all():
+            raise RuntimeError(f"rg_reference {key}: differs by {err}")
+        out[f"max_abs_err_{key}"] = err
+    out["stream_tokens_equal"] = smoke_streams(
+        model, params, cpu_params, "rg_reference", rng, ("contiguous",))
+    out["fit"] = {algo: smoke_fit("recurrentgemma-9b", algo, params,
+                                  cpu_params, "rg_reference")
+                  for algo in RG_FIT_ALGOS}
+    del params, cpu_params
+    _free()
+    return out
+
+
+def rg_requests(vocab: int, eos_req: int | None = None,
+                eos_id: int | None = None) -> list[Request]:
+    return serve_requests(vocab, eos_req, eos_id, lens=RG_LENS, seed=7)
+
+
+def rg_ring_read_bytes(model, comps) -> int:
+    """The ring keys and values the live lanes read over a run, reckoned
+    from its completions: a request of prompt length L emitting n tokens
+    decodes at positions L .. L + n - 2, each attention layer reading
+    min(pos + 1, window) keys and as many values."""
+    cfg = model.cfg
+    per_key = 2 * cfg.n_kv_heads * cfg.hd * torch.tensor(
+        [], dtype=cfg.dtype).element_size() * cfg.n_super
+    return per_key * sum(min(pos + 1, cfg.window)
+                         for c in comps
+                         for pos in range(c.n_prompt,
+                                          c.n_prompt + len(c.tokens) - 1))
+
+
+def rg_serve() -> tuple[dict, dict]:
+    """recurrentgemma-9b at published widths and full depth, random bf16
+    weights: ``RG_LENS``' requests on the contiguous engine (8 slots,
+    decode block 8, graphs), flash launched 12 times a prefill call and
+    paged 12 x ``decode_block`` a replay; then its decode blocks under
+    the profiler.  Returns (serve result, profile)."""
+    model = RGLM(recurrentgemma_9b.CONFIG)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n = count_params(params)
+    if not n == model.param_count() == RG_PARAMS:
+        raise RuntimeError(f"recurrentgemma parameters: {n}, the config "
+                           f"counts {model.param_count()}, want {RG_PARAMS}")
+    cfg = model.cfg
+    kernels = {"flash_attention": flash_attention,
+               "paged_attention": paged_attention}
+    common, engine, launches = drive_serve(model, params, RG_ENGINE,
+                                           rg_requests, kernels)
+    per_replay = cfg.n_super * RG_ENGINE.decode_block
+    held = engine.block_stats.captured_launches
+    if common["graphs_captured"] != 2 or engine._attn_scratch is None \
+            or any(h != {"paged_attention": per_replay}
+                   for h in held.values()) \
+            or common["eager_launches"]["paged_attention"] != 0 \
+            or launches["paged_attention"] != per_replay * common["replays"] \
+            or launches["flash_attention"] != \
+            cfg.n_super * common["prefill_batches"]:
+        raise RuntimeError(
+            f"rg_serve launches {launches} ({common['eager_launches']} "
+            f"eager) over {common['replays']} replays of graphs holding "
+            f"{held} and {common['prefill_batches']} prefill calls; want "
+            f"paged {per_replay} a replay, flash {cfg.n_super} a prefill")
+    # what a tick must read: every weight (the tied table whole, as the
+    # head), plus the ring keys and values of the live lanes (their mean
+    # over the run's ticks, reckoned from the requests)
+    comps = engine.take_completed()
+    weight_bytes = sum(_nbytes(t) for t in tree_leaves(params))
+    ring_read = rg_ring_read_bytes(model, comps) / common["ticks_run"]
+    bound_ms = (weight_bytes + ring_read) / HBM_BYTES_PER_S * 1e3
+    arena = engine.pool.arena
+    ring_bytes = sum(_nbytes(arena["blocks"][f"sub{j}"][name])
+                     for j, kind in enumerate(cfg.pattern) if kind == "attn"
+                     for name in ("k", "v", "pos"))
+    result = {
+        "phase": "rg_serve", **common, "backend": "contiguous",
+        "window": cfg.window, "heads": f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        "head_dim": cfg.hd, "prompt_lens": list(RG_LENS),
+        "max_seq": RG_ENGINE.max_seq,
+        "ring_bytes": ring_bytes,
+        "state_bytes": engine.pool.kv_bytes() - ring_bytes,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "tick_weight_bytes": weight_bytes,
+        "tick_ring_read_bytes_mean": ring_read,
+        "bound_ms_per_tick": bound_ms,
+        "share_of_bound": bound_ms / common["ms_per_decode_tick"],
+    }
+    del engine
+    _free()
+    profile = profile_decode(model, params, RG_ENGINE,
+                             rg_requests(cfg.vocab), "rg_profile")
+    del model, params
+    _free()
+    return result, profile
+
+
 def ptxas(source: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel compiled
     from ``csrc/<source>.cu``, from ``nvcc -Xptxas -v`` in this run's
@@ -2649,6 +2895,20 @@ def main() -> int:
     result, profile = mla_serve()
     emit(result)
     emit(profile)
+    _free()
+
+    kernels = [check_kernel(k, RG_CASES[k]) for k in RG_CASES]
+    result = rg_reference()
+    emit(result)
+    for row in rows:            # the Griffin slice's fits ran them too
+        if row["path"] == "train":
+            row["launches_rg_reference"] = {
+                algo: fit["launches"][row["name"]]
+                for algo, fit in result["fit"].items()}
+    result, profile = rg_serve()
+    emit(result)
+    emit(profile)
+    rows += kernel_rows(kernels, result["launches"], "rg_serve")
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -14,10 +14,12 @@ and its wrappers (``ops.py``) are loaded over those libraries, so that
 its host work is timed as it ran; the wrappers' own imports other than
 ``_build`` come from this checkout.
 
-Attention: for every case of ``chip_smoke.KERNELS``, in bfloat16 and
-float32, both kernels are held to ``chip_smoke.TOL`` against the plain
-version in float32; one JSON line gives the medians of the earlier
-kernel, this checkout's kernel and (flash) SDPA.  SSD: for every case
+Attention: for every case of ``chip_smoke.KERNELS``, ``MOE_CASES`` and
+``RG_CASES``, in bfloat16 and float32, both kernels are held to
+``chip_smoke.TOL`` against the plain version in float32; one JSON line
+gives the medians of the earlier kernel, this checkout's kernel and
+(flash) SDPA.  A head width the earlier wrapper does not take (its
+``HEAD_DIMS``) is timed for this checkout alone, its line saying so.  SSD: for every case
 of ``chip_smoke.ssd_cases``, both kernels are held to ``1e-4 *
 max|plain|``; the earlier wrapper takes the TPU layout only, so at the
 grouped (serve) case it is timed on the TPU-layout copies of the same
@@ -41,6 +43,7 @@ device; the last line is ``{"ok": true}``.
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
 import importlib
 import re
@@ -97,6 +100,15 @@ def parent_wrappers(kernels: Path) -> dict:
         exec(compile(src, str(path), "exec"), mod.__dict__)  # noqa: S102
         wrappers[name] = getattr(mod, WRAPPERS[name])
     return wrappers
+
+
+def parent_head_dims(kernels: Path) -> tuple[int, ...]:
+    """The head widths the earlier attention kernels take: its flash
+    wrapper's ``HEAD_DIMS`` (the earlier paged wrapper imports them from
+    there, which resolves in this checkout when its wrapper is loaded)."""
+    src = (kernels / "flash_attention" / "ops.py").read_text()
+    return ast.literal_eval(re.search(r"^HEAD_DIMS = (\(.*?\))", src,
+                                      re.M).group(1))
 
 
 def check(name: str, fn, args, kw, ref32, dtype) -> float:
@@ -222,6 +234,7 @@ def main() -> int:
     smi = cs.nvidia_smi()
     _build.build(tuple(WRAPPERS))
     parent = parent_wrappers(opts.parent)
+    parent_widths = parent_head_dims(opts.parent)
     tiny = torch.zeros(16, device="cuda")
     floor = {"device_ms": [], "unheld_ms": []}
     for hold, key in ((True, "device_ms"), (False, "unheld_ms")):
@@ -230,22 +243,24 @@ def main() -> int:
     cs.emit({"phase": "floor", **floor})
     for name in ("paged_attention", "flash_attention"):
         new_fn = cs.KERNELS[name]["fn"]
-        for geometry in cs.KERNELS[name]["cases"]:
+        for geometry in (cs.KERNELS[name]["cases"] + cs.MOE_CASES[name]
+                         + cs.RG_CASES[name]):
+            geometry = dict(geometry)
+            make = geometry.pop("case", cs.CASES[name])
             for dtype in cs.DTYPES:
-                args, kw, _, _, library, shape = \
-                    cs.CASES[name](dtype, **geometry)
+                args, kw, _, _, library, shape = make(dtype, **geometry)
                 ref32 = new_fn(*map(cs._f32, args), **kw, impl="ref")
+                calls = {"new": lambda: new_fn(*args, **kw, impl="cuda")}
+                err = {"new": check(name, new_fn, args, kw, ref32, dtype)}
+                if args[0].shape[-1] in parent_widths:
+                    err["parent"] = check(name, parent[name], args, kw,
+                                          ref32, dtype)
+                    calls["parent"] = lambda f=parent[name]: f(
+                        *args, **kw, impl="cuda")
                 row = {"kernel": name, "shape": shape,
                        "dtype": str(dtype).removeprefix("torch."),
-                       "max_abs_err": {
-                           "parent": check(name, parent[name], args, kw,
-                                           ref32, dtype),
-                           "new": check(name, new_fn, args, kw, ref32,
-                                        dtype)}}
-                calls = {
-                    "parent": lambda f=parent[name]: f(*args, **kw,
-                                                       impl="cuda"),
-                    "new": lambda: new_fn(*args, **kw, impl="cuda")}
+                       "max_abs_err": err,
+                       "parent_takes_width": "parent" in calls}
                 if library is not None:
                     calls["library"] = library
                 cs.emit({**row, **timed(calls)})

@@ -23,7 +23,7 @@
 //   * Products on the tensor cores: mma.sync.m16n8k16 bf16 -> f32.
 //     S = Q K^T is exact per product on bf16 inputs.  Head widths below
 //     16 (hd 8) pad the contraction with zero columns in shared memory,
-//     so one design serves every width the wrapper takes (8 .. 128).
+//     so one design serves every width the wrapper takes (8 .. 256).
 //   * GQA packing in the M dimension: one block of 4 warps takes one
 //     (batch, KV head) and 64 or 128 consecutive rows of the flattened
 //     (position, query head of the group) space, position-major: for
@@ -33,12 +33,12 @@
 //     A warp holds 16 rows (MT 1) or, on grids of more than two 64-row
 //     blocks an SM, 32 rows (MT 2), where every K and V fragment it loads
 //     serves two m16 tiles and K/V tiles are read half as often.
-//   * K/V tiles of 64 keys travel in bf16 through cp.async (16 B a
-//     thread) into a ring of 2 stages, so the next tile loads while one
-//     is computed; Q rides in the first group.  Rows are padded by 16 B
-//     in shared memory, which makes every ldmatrix (and ldmatrix.trans
-//     for V) free of bank conflicts at every width.  The query tiles that
-//     see the most keys start first.
+//   * K/V tiles of 64 keys (32 at width 256) travel in bf16 through
+//     cp.async (16 B a thread) into a ring of 2 stages, so the next tile
+//     loads while one is computed; Q rides in the first group.  Rows are
+//     padded by 16 B in shared memory, which makes every ldmatrix (and
+//     ldmatrix.trans for V) free of bank conflicts at every width.  The
+//     query tiles that see the most keys start first.
 //   * The online softmax runs on the mma fragments: each row's max and
 //     sum reduce across its 4-thread quad with __shfl_xor_sync, scores in
 //     the log2 domain (scale * log2 e folded in, one ex2.approx each),
@@ -58,6 +58,15 @@
 //   first tile also waits for Q; with a few hundred blocks the time is
 //   that latency, not either peak.  wgmma fed by TMA and a producer warp
 //   is for prompts long enough to be bound by operations.
+//   * Width 256 (Griffin's local MQA: 16 query heads over one KV head).
+//     A warp's output accumulator is then 128 float32 registers a thread;
+//     keeping Q's 64 fragment registers as well, as the narrower widths
+//     do, would pass the 255 a thread allows.  So at 256 Q stays in shared
+//     memory and each k16 step reloads its fragment (one ldmatrix.x4 a
+//     step).  With Q reloaded, 64-key tiles (32 score registers) still
+//     spilled 400 B a thread at 255 registers; 32-key tiles halve the
+//     scores, and Q plus the 2-stage K/V ring take 101,376 B of shared
+//     memory, two blocks an SM (PERF.md).
 //
 // float32: a redesign of the first float32 kernel (one thread per query
 // row on the CUDA cores, every K/V tile loaded once per query head, each
@@ -68,9 +77,9 @@
 //   * The bfloat16 design's structure: (position, query head) rows of one
 //     KV head, 64 of them in a block of 4 warps (16 a warp), so each K/V
 //     tile is loaded once for the g heads; a 2-stage cp.async ring of
-//     32-key float32 tiles (hd 128 takes 99 KB, two blocks an SM); the
-//     online softmax on the fragments in the log2 domain; masks only on
-//     cut tiles; the heaviest tiles first.
+//     32-key float32 tiles (hd 128 takes 99 KB, two blocks an SM; hd 256
+//     195 KB, one); the online softmax on the fragments in the log2
+//     domain; masks only on cut tiles; the heaviest tiles first.
 //   * P V on the tensor cores in 3xTF32: m16n8k8 tf32 mma with a = a_hi +
 //     a_lo (cvt.rna.tf32.f32 of a, then of a - a_hi) and a_lo b_hi + a_hi
 //     b_lo + a_hi b_hi.  The contraction over keys is permuted (logical
@@ -101,8 +110,6 @@ constexpr float kNegInf = -1e30f;
 // ----------------------------------------------------------- bfloat16 path
 
 constexpr int kWarps = 4;
-constexpr int kKeys = 64;           // keys per K/V tile
-constexpr int kNT = kKeys / 8;      // n8 score tiles per m16 tile and K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 // MT m16 tiles per warp
@@ -115,7 +122,15 @@ struct Geo {
   static constexpr int DT = HD / 8;              // n8 tiles of the output
   static constexpr int ROWS = 16 * MT * kWarps;  // (position, head) rows
   static constexpr int STAGES = 2;
-  static constexpr int TILE = kKeys * LD;        // one K or V tile
+  // Q's fragments stay in registers up to width 128; at 256 each k16 step
+  // reloads its fragment from shared memory, for want of registers
+  static constexpr bool QREG = HD <= 128;
+  static constexpr int QKS = QREG ? KSTEPS : 1;  // k steps held in registers
+  // keys per K/V tile: 64, or 32 at width 256, where the 32 score
+  // registers of a 64-key tile beside the 128 of the accumulator spill
+  static constexpr int KEYS = HD > 128 ? 32 : 64;
+  static constexpr int NT = KEYS / 8;  // n8 score tiles per m16 and K/V tile
+  static constexpr int TILE = KEYS * LD;         // one K or V tile
   static constexpr int SMEM = (ROWS * LD + 2 * STAGES * TILE) * 2;
 };
 
@@ -193,11 +208,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   // from its first row's first key
   const int k_end = causal ? min(sk, pos_last + 1) : sk;
   const int k_begin = window > 0 ? max(0, pos_first - window + 1) : 0;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys
-                                      : 0;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + G::KEYS - 1) / G::KEYS : 0;
 
   if constexpr (HD < 16) {  // the zero columns that pad the contraction
-    for (int r = tid; r < G::ROWS + 2 * G::STAGES * kKeys; r += kWarps * 32)
+    for (int r = tid; r < G::ROWS + 2 * G::STAGES * G::KEYS; r += kWarps * 32)
       *reinterpret_cast<uint4*>(q_s + r * G::LD + 8) = make_uint4(0, 0, 0, 0);
   }
 
@@ -217,8 +232,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   auto load_tile = [&](int tile, int stage) {
     __nv_bfloat16* ks = kv_s + stage * 2 * G::TILE;
     __nv_bfloat16* vs = ks + G::TILE;
-    const int k0 = k_begin + tile * kKeys;
-    for (int i = tid; i < kKeys * G::CHUNKS; i += kWarps * 32) {
+    const int k0 = k_begin + tile * G::KEYS;
+    for (int i = tid; i < G::KEYS * G::CHUNKS; i += kWarps * 32) {
       const int t = i / G::CHUNKS, c = i - t * G::CHUNKS;
       const int kp = k0 + t;
       const bool ok = kp < sk;
@@ -246,7 +261,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   const float sl2 = scale * kLog2e;
 
-  uint32_t qa[MT][G::KSTEPS][4];
+  uint32_t qa[MT][G::QKS][4];
   float acc[MT][G::DT][4];
   float m_r[MT][2], l_r[MT][2];  // running max (log2 domain), sum share
 #pragma unroll
@@ -266,39 +281,47 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (nxt < n_tiles) load_tile(nxt, nxt % G::STAGES);
       cp_async_commit();
     }
-    if (it == 0) {
+    auto load_q = [&](uint32_t(&r)[4], int i, int ks) {
+      ldsm_x4(r, smem_u32(q_s + ((warp * MT + i) * 16 + (lane & 15)) * G::LD +
+                          ks * 16 + (lane >> 4) * 8));
+    };
+    if constexpr (G::QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int ks = 0; ks < G::KSTEPS; ++ks)
-          ldsm_x4(qa[i][ks],
-                  smem_u32(q_s + ((warp * MT + i) * 16 + (lane & 15)) * G::LD +
-                           ks * 16 + (lane >> 4) * 8));
+          for (int ks = 0; ks < G::KSTEPS; ++ks) load_q(qa[i][ks], i, ks);
+      }
     }
     const __nv_bfloat16* ks_t = kv_s + (it % G::STAGES) * 2 * G::TILE;
     const __nv_bfloat16* vs_t = ks_t + G::TILE;
-    const int k0 = k_begin + it * kKeys;
+    const int k0 = k_begin + it * G::KEYS;
 
-    // S = Q K^T for this warp's rows and the tile's 64 keys; each K
+    // S = Q K^T for this warp's rows and the tile's keys; each K
     // fragment serves the warp's MT m16 tiles
-    float s[MT][kNT][4];
+    float s[MT][G::NT][4];
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int t = 0; t < kNT; ++t)
+      for (int t = 0; t < G::NT; ++t)
         s[i][t][0] = s[i][t][1] = s[i][t][2] = s[i][t][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < G::KSTEPS; ++ks) {
+      if constexpr (!G::QREG) {
 #pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
+        for (int i = 0; i < MT; ++i) load_q(qa[i][0], i, ks);
+      }
+      const int kq = G::QREG ? ks : 0;
+#pragma unroll
+      for (int np = 0; np < G::NT / 2; ++np) {
         uint32_t kb[4];
         ldsm_x4(kb, smem_u32(ks_t +
                              (np * 16 + (lane & 7) + (lane >> 4) * 8) * G::LD +
                              ks * 16 + ((lane >> 3) & 1) * 8));
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          mma_bf16(s[i][2 * np], qa[i][ks], kb[0], kb[1]);
-          mma_bf16(s[i][2 * np + 1], qa[i][ks], kb[2], kb[3]);
+          mma_bf16(s[i][2 * np], qa[i][kq], kb[0], kb[1]);
+          mma_bf16(s[i][2 * np + 1], qa[i][kq], kb[2], kb[3]);
         }
       }
     }
@@ -306,8 +329,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     // scale, and mask only where the diagonal, the window or sk cut: key
     // k0 + c0 + 8t + e is kept for a row iff it lies in the row's
     // [first, last] key range
-    const bool need_mask = k0 + kKeys > sk ||
-                           (causal && k0 + kKeys - 1 > pos_first) ||
+    const bool need_mask = k0 + G::KEYS > sk ||
+                           (causal && k0 + G::KEYS - 1 > pos_first) ||
                            (window > 0 && k0 <= pos_last - window);
     const int c0 = k0 + (lane & 3) * 2;
 #pragma unroll
@@ -317,7 +340,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         const int lo = window > 0 ? pos[i][h] - window + 1 - c0 : -c0;
         const int hi = (causal ? min(pos[i][h], sk - 1) : sk - 1) - c0;
 #pragma unroll
-        for (int t = 0; t < kNT; ++t) {
+        for (int t = 0; t < G::NT; ++t) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float x = s[i][t][2 * h + e] * sl2;
@@ -338,14 +361,14 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int h = 0; h < 2; ++h) {
         float mx = kNegInf;
 #pragma unroll
-        for (int t = 0; t < kNT; ++t)
+        for (int t = 0; t < G::NT; ++t)
           mx = fmaxf(mx, fmaxf(s[i][t][2 * h], s[i][t][2 * h + 1]));
         const float mn = fmaxf(m_r[i][h], quad_max(mx));
         const float al = exp2_fast(m_r[i][h] - mn);
         m_r[i][h] = mn;
         float sum = 0.f;
 #pragma unroll
-        for (int t = 0; t < kNT; ++t) {
+        for (int t = 0; t < G::NT; ++t) {
           s[i][t][2 * h] = exp2_fast(s[i][t][2 * h] - mn);
           s[i][t][2 * h + 1] = exp2_fast(s[i][t][2 * h + 1] - mn);
           sum += s[i][t][2 * h] + s[i][t][2 * h + 1];
@@ -362,7 +385,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     // acc += P V, P = P_hi + P_lo in bf16; each V fragment serves the
     // warp's MT m16 tiles
 #pragma unroll
-    for (int j = 0; j < kNT / 2; ++j) {
+    for (int j = 0; j < G::NT / 2; ++j) {
       uint32_t ph[MT][4], pl[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -448,7 +471,7 @@ int launch_geo(const void* q, const void* k, const void* v, void* out, int b,
 // Grids of more than two blocks of 64 rows an SM take 32 rows a warp
 // (MT 2: each K and V fragment serves two m16 tiles, so K/V tiles are read
 // for 128 rows, not 64); smaller ones keep 16 rows a warp and twice the
-// blocks.  hd 128 keeps MT 1 (registers).
+// blocks.  hd 128 and 256 keep MT 1 (registers).
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
                 int sq, int sk, int n_q, int n_kv, int causal, int window,
@@ -727,6 +750,7 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
     case 32: return launch_f32<32>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
     case 64: return launch_f32<64>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
     case 128: return launch_f32<128>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
+    case 256: return launch_f32<256>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -745,6 +769,7 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
     case 32: return launch_bf16<32>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, sms, scale, s);
     case 64: return launch_bf16<64>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, sms, scale, s);
     case 128: return launch_bf16<128>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, sms, scale, s);
+    case 256: return launch_bf16<256>(q, k, v, out, b, sq, sk, n_q, n_kv, causal, window, sms, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -31,13 +31,19 @@
 //     (window >= 1) are skipped: a row that sees a key resets whatever
 //     they would have added through alpha = exp(-1e30 - m) = 0, so the
 //     skip is exact.  A slot with kv_len = 0 gets zeros from block 0.
-//   * The block's keys go in chunks of 64 (32 for rows of 512 B) through
-//     cp.async, 16 B a thread, into a ring of 2 stages: up to 128 keys, 8
-//     pages of 16, in flight a block.  The block table's entries for the
-//     range load with q, before kv_len is known.  Keys past the range are
-//     zero-filled and take no part (score -inf, p = 0); keys inside it
-//     past kv_len or outside the window score -1e30, as in the TPU kernel.
-//     Trash page 0 is never read.
+//   * The block's keys go in chunks of 64 (32 for rows of 512 B or more)
+//     through cp.async, 16 B a thread, into a ring of 2 stages: up to 128
+//     keys, 8 pages of 16, in flight a block.  At width 256 (Griffin's
+//     MQA, g = 16) the bf16 ring takes 67.6 KB and the float32 one 133
+//     KB, beside ~40 KB of float32 scratch for the 16 rows.  The block
+//     table's entries for the range load with q, before kv_len is known.
+//     Keys past the range are zero-filled and take no part (score -inf,
+//     p = 0); keys inside it past kv_len or outside the window score
+//     -1e30, as in the TPU kernel.
+//     No page id means anything to the kernel: the paged pool's trash
+//     page 0 is never read because no table maps a live position to it,
+//     and the Griffin decode, whose tables view each slot's ring of
+//     window keys as pages, reads page 0 as slot 0's first ring page.
 //   * Scores: a thread per (row, key), float32 from the stored type; the
 //     softmax a warp per row; P V a thread per (row, pair of dims).
 //   * Merge: when one split visits every page it writes the output.
@@ -444,6 +450,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
     PAGED_HD(32)
     PAGED_HD(64)
     PAGED_HD(128)
+    PAGED_HD(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef PAGED_HD

@@ -25,7 +25,7 @@ from .ref import attention_ref
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
-HEAD_DIMS = (8, 16, 32, 64, 128)     # head widths the kernel is built for
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # head widths the kernel is built for
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict[torch.dtype, ctypes._CFuncPtr] = {}
 

@@ -10,12 +10,17 @@ Synthetic workload (uniform batch)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --kv-backend paged --batch 8 --prompt-len 256 --gen 32
 
-Mamba-2 (``--arch mamba2-780m``) runs on the contiguous backend, the
-default; ``--kv-backend paged`` is refused with the engine's error (its
-lanes are a fixed conv window and SSM state).  On the CPU::
+Mamba-2 (``--arch mamba2-780m``) and the Griffin hybrid (``--arch
+recurrentgemma-9b``) run on the contiguous backend, the default;
+``--kv-backend paged`` is refused with the engine's error (their lanes
+are fixed conv windows and recurrent states, and Griffin's attention a
+ring of ``window`` keys).  On the CPU::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --smoke --device cpu --batch 3 --prompt-len 20 --gen 5
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --smoke --device cpu --batch 3 \\
+        --prompt-len 12 --gen 10
 
 Trace-driven mode — ``--requests`` takes a JSON file with a list of
 request dicts (``tokens`` or ``prompt_len``, ``max_new_tokens``, optional

@@ -290,11 +290,14 @@ def slot_prefill(model, params, tokens: torch.Tensor, depth: int,
 
 
 def slot_decode(model, params, arena: Tree, tokens: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
+                pos: torch.Tensor, *, attn_scratch=None) -> torch.Tensor:
     """One decode tick over every lane of a contiguous arena, each lane
     at its own position (``tokens [S]``, ``pos [S]``) -> logits ``[S,
-    V]``.  The arena is updated in place."""
-    logits, _ = model.decode_step(params, arena, tokens[:, None], pos)
+    V]``.  The arena is updated in place.  ``attn_scratch`` (the paged
+    kernel's split-K scratch of the caller's own) goes to a model whose
+    contiguous decode runs that kernel (the Griffin hybrid's rings)."""
+    kw = {} if attn_scratch is None else {"attn_scratch": attn_scratch}
+    logits, _ = model.decode_step(params, arena, tokens[:, None], pos, **kw)
     return logits[:, 0]
 
 

@@ -1,8 +1,10 @@
 """ServeEngine — continuous-batching inference over a slot-pooled cache.
 
 Counterpart of ``repro.serve.engine`` for the decoder LM (dense, MoE
-and MLA; both cache backends) and Mamba-2 (the contiguous backend: its
-lanes are a fixed conv window and SSM state, with nothing to page).
+and MLA; both cache backends), Mamba-2 and the Griffin hybrid (the
+contiguous backend: their lanes are fixed conv windows and recurrent
+states, and Griffin's attention a ring of ``window`` keys, with nothing
+to page).
 Requests are data (:class:`~repro_torch.serve.types.Request`),
 admission is the :class:`~repro_torch.serve.scheduler.Scheduler`'s, and
 decoding runs ``decode_block`` slot-wide ticks between scheduler
@@ -33,7 +35,9 @@ the engine runs the body eagerly on CUDA only when built with
 graph reads stays at its address for the engine's life: the parameters
 (``reset(params=...)`` copies new values into the same tensors), the
 pool, the state buffers and the paged kernel's split-K scratch, which
-the engine owns (none for MLA, whose paged decode runs no kernel).
+the engine owns (none for MLA, whose paged decode runs no kernel; one
+for the Griffin hybrid on the contiguous backend, whose decode runs the
+kernel over its rings, from the model's ``decode_scratch``).
 :attr:`ServeEngine.block_stats` records the graphs, their capture time,
 the kernel launches each graph holds, and the blocks and ticks run.
 
@@ -246,6 +250,9 @@ class ServeEngine:
                 self._attn_scratch = launch_scratch(
                     n, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                     self.pool.max_blocks, dev)
+        elif dev.type == "cuda" and hasattr(model, "decode_scratch"):
+            # a contiguous cache whose decode runs the paged kernel
+            self._attn_scratch = model.decode_scratch(n, dev)
         self.last_logits = torch.zeros(
             (db, n, model.cfg.vocab), dtype=table.dtype,
             device=dev) if keep_logits else None
@@ -482,7 +489,8 @@ class ServeEngine:
                     attn_scratch=self._attn_scratch)
             else:
                 logits = slot_decode(self.model, self.params,
-                                     self.pool.arena, st.token, st.pos)
+                                     self.pool.arena, st.token, st.pos,
+                                     attn_scratch=self._attn_scratch)
             if self.last_logits is not None:
                 self.last_logits[i].copy_(logits)
             if sampled:

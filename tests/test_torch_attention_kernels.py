@@ -13,8 +13,9 @@ rounds the probabilities to bfloat16).
 On the card (``-m gpu``; skipped without CUDA): the CUDA kernels against
 their plain versions, float32 ``2e-5`` and bfloat16 ``2e-2`` (the kernels
 keep probabilities in float32 where the plain versions round them to
-bfloat16), at every head width, GQA groups 1-8, ragged and steep cases,
-and two paged calls bitwise equal; bfloat16 paged runs also against the
+bfloat16), at every head width (8-256), GQA groups 1-8, ragged and steep
+cases, Griffin's width 256 at groups 1 and 16 with its window of 2048 and
+its rings read as pages, and two paged calls bitwise equal; bfloat16 paged runs also against the
 split-K plain version in float32 at ``2e-3 + 1.6e-2 * |plain|``.  Run there with
 ``python -m pytest --noconftest -q -m gpu tests/test_torch_*.py``.
 """
@@ -286,6 +287,46 @@ class TestAttentionKernelsOnTheCard:
         after tile."""
         _flash_check(*_flash_inputs(30, 2, 257, 257, 8, 2, 64, dtype, cuda,
                                     q_mul=30.0), dtype)
+
+    @pytest.mark.parametrize("sq", [2100, 1500, 333])
+    @pytest.mark.parametrize("g", [1, 16])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_flash_griffin_width_256(self, cuda, sq, g, dtype):
+        """recurrentgemma's local attention: width 256, GQA group 1 or 16
+        (MQA: 16 heads over one), window 2048 (at sq 2100 the window's
+        first key falls inside a key tile), ragged sq below it."""
+        _flash_check(*_flash_inputs(sq + g, 1, sq, sq, g, 1, 256, dtype,
+                                    cuda), dtype, window=2048)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_paged_griffin_ring_as_pages(self, cuda, dtype):
+        """Width 256, 16 query heads over one, each slot's ring of 64
+        keys seen as 4 pages of 16 through ``RGLM.ring_table`` (the table
+        two rings wide, the rings at pool pages ``4 b .. 4 b + 3``): slot
+        0 at kv_len 1 reads pool page 0; kv_len 64, 65 and 200 fill and
+        wrap the ring, folded into (64, 128] as the model folds them."""
+        import dataclasses
+        from repro_torch.configs import recurrentgemma_9b
+        from repro_torch.models.rglru import RGLM
+        model = RGLM(dataclasses.replace(recurrentgemma_9b.CONFIG,
+                                         window=64))
+        lens = np.array([1, 64, 65, 200])
+        rng = np.random.default_rng(22)
+        q = rng.standard_normal((4, 16, 256), np.float32)
+        kp = rng.standard_normal((16, 16, 1, 256), np.float32)
+        vp = rng.standard_normal((16, 16, 1, 256), np.float32)
+        fold = np.where(lens > 64, (lens - 1) % 64 + 1 + 64, lens)
+        table = model.ring_table(4, cuda)
+        assert table[0, 0].item() == 0 and table.shape == (4, 8)
+        args = (_to_torch(q, dtype, cuda), _to_torch(kp, dtype, cuda),
+                _to_torch(vp, dtype, cuda), table,
+                torch.from_numpy(fold.astype(np.int32)).to(cuda))
+        got = paged_attention(*args, window=64)
+        torch.cuda.synchronize()
+        _close(got, paged_attention(*args, window=64, impl="ref"),
+               _KERNEL_TOL[dtype])
+        if dtype == "bfloat16":
+            _paged_check_f32(got, args, 64)
 
     @pytest.mark.parametrize("slots,mb", [(1, 64), (1, 128), (2, 64),
                                           (2, 128)])

@@ -122,7 +122,7 @@ def test_config_matches_reference(arch, name):
 
 def test_unported_archs_and_features_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("recurrentgemma-9b")
+        get_arch("llava-next-34b")
 
 
 @pytest.mark.parametrize("arch", sorted(FULL_PARAMS))
