@@ -215,9 +215,54 @@ code is non-zero):
    its share, the ring and state bytes; then ``rg_profile``, its decode
    blocks under ``torch.profiler``.
 
+26. ``kernel`` (Whisper geometry) — the flash kernel non-causal over
+   1500 frames at 16/16 heads of width 64 (the encoder, b 2 and b 8 x
+   1500 x 1500; the cross prefill, b 2 x 400 prompt rows over 1500) and
+   causal (the decoder's self prefill, b 2 x 400), SDPA as the library
+   time; the paged kernel over 8 contiguous lanes seen as pages
+   (``WhisperModel.lane_table``): the cross lanes of 1500 frames as
+   pages of 4 at kv_len 1500 and the self lanes of 448 as pages of 16,
+   SDPA over the same lanes contiguous (a ``kv_len`` mask on the self
+   lanes) as the library time; as in phase 3.
+27. ``whisper_reference`` — whisper SMOKE (float32) on the card (flash
+   encoder, cross and self prefill; paged self and cross decode)
+   against the CPU, same weights and frames: logits of the full
+   forward, of a prefill and of 6 decode steps, and the loss, within
+   ``FRONTEND_REF_TOL``, both kernels launched; the contiguous engine's
+   greedy streams (graphs on the card, each request with its frames)
+   equal.
+28. ``whisper_serve`` — whisper-medium at published widths and full
+   depth (24 + 24 layers, 792,032,256 random bf16 parameters) serves 12
+   greedy requests (prompts of 16-400 tokens, each with seeded frames
+   [1500, 1024] float32, 32 new tokens, one with an EOS) on the
+   contiguous backend (8 slots, lanes of 448, decode block 8, graphs).
+   Launches as in phase 6: flash 72 a prefill call (24 encoder, 24 x 2
+   decoder), paged 48 x ``decode_block`` a replay.  Beside the ms per
+   tick, its byte bound (the decoder's weights but the cross ``wk`` and
+   ``wv``, which decode never reads, the tied table whole,
+   the live lanes' cross K/V and self K/V, reckoned from the requests)
+   and its share; then ``whisper_profile``.
+29. ``kernel`` (llava geometry) — the flash kernel at 56/8 heads (GQA
+   group 7) of width 128, causal, b 2 x s 896 and b 1 x s 1088 (576
+   patches and the prompt); the paged kernel at 8 slots, 56/8 x 128, 70
+   blocks of 16, kv_len <= 1120; as in phase 3.
+30. ``llava_reference`` — llava SMOKE (float32) with 8 patches a request
+   on the card against the CPU: as phase 27, the decode steps paged,
+   and the engine's streams on paged and contiguous KV.
+31. ``llava_serve`` — llava-next-34b at published widths and full depth
+   (60 layers, 34,388,917,248 random bf16 parameters, 68.78 GB drawn on
+   the card a leaf slice at a time, after every earlier phase's memory
+   is freed) serves the serve phase's 12 requests, each after seeded
+   patch embeddings [576, 7168], through paged KV (pages of 16, 70 a
+   lane, 8 slots, decode block 8, graphs): flash 60 a prefill call,
+   paged 60 x ``decode_block`` a replay; the tick's byte bound (every
+   weight but the embedding table, plus the live lanes' K/V) and its
+   share; no depth cut; then ``llava_profile``.
+
 Then one ``{"kernels": [...]}`` line (each kernel's cases, the path
 whose run gave its launches — ``serve``, ``train``, ``mamba2_serve``,
-``moe_serve``, ``rg_serve`` — fused AdamW's on the async path too, as
+``moe_serve``, ``rg_serve``, ``whisper_serve``, ``llava_serve`` —
+fused AdamW's on the async path too, as
 ``launches_async_train``, the training kernels' in ``mla_reference``'s
 and ``rg_reference``'s fits as ``launches_mla_reference`` and
 ``launches_rg_reference``, and ptxas's registers, shared
@@ -249,8 +294,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api import JobConfig, Session  # noqa: E402
 from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
-                                 granite_3_2b, mamba2_780m,
-                                 qwen3_moe_30b_a3b, recurrentgemma_9b)
+                                 granite_3_2b, llava_next_34b, mamba2_780m,
+                                 qwen3_moe_30b_a3b, recurrentgemma_9b,
+                                 whisper_medium)
 from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
                                            worker_unstack)
 from repro_torch.kernels import _build  # noqa: E402
@@ -622,20 +668,25 @@ def serve_requests(vocab: int, eos_req: int | None = None,
             for i, n in enumerate(lens)]
 
 
-def drive_serve(model, params, engine_cfg, make_requests, kernels) -> tuple:
+def drive_serve(model, params, engine_cfg, make_requests, kernels,
+                frontend: str | None = None) -> tuple:
     """A warm-up run, then the timed run of ``make_requests(vocab,
     eos_req, eos_id)`` with the ``kernels``' launch counters set to 0
-    just before and read just after; checks every stream.  Returns (the
-    phase's common numbers, the engine, launches by kernel name)."""
+    just before and read just after; checks every stream.  ``frontend``
+    goes to the engines (the requests then bring their extras).  Returns
+    (the phase's common numbers, the engine, launches by kernel
+    name)."""
     cfg = model.cfg
     # warm-up run (first launches, cuBLAS heuristics) whose streams also
     # pick the EOS: request 3 gets the 6th token it emits greedily
-    warm = ServeEngine(model, params, engine_cfg, device="cuda")
+    warm = ServeEngine(model, params, engine_cfg, device="cuda",
+                       frontend=frontend)
     base = warm.generate(make_requests(cfg.vocab))
     eos_req, eos_id = 3, base[3].tokens[5]
     del warm
 
-    engine = ServeEngine(model, params, engine_cfg, device="cuda")
+    engine = ServeEngine(model, params, engine_cfg, device="cuda",
+                         frontend=frontend)
     reqs = make_requests(cfg.vocab, eos_req, eos_id)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -675,7 +726,10 @@ def drive_serve(model, params, engine_cfg, make_requests, kernels) -> tuple:
     ticks = st.slot_ticks_total // engine_cfg.slots
     ttft = sorted(st.ttft_s)
     common = {
-        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "arch": cfg.name,
+        "layers": getattr(cfg, "n_layers", None)
+        or cfg.n_enc_layers + cfg.n_dec_layers,
+        "d_model": cfg.d_model,
         "params": count_params(params), "dtype": cfg.param_dtype,
         "requests": st.requests_completed,
         "finish": {c.request_id: c.finish_reason for c in comps},
@@ -763,7 +817,7 @@ def _busy_ms(spans) -> float:
 
 
 def profile_decode(model, params, engine_cfg, requests=None,
-                   phase="profile") -> dict:
+                   phase="profile", frontend: str | None = None) -> dict:
     """Decode blocks alone under ``torch.profiler``: 8 requests fill the 8
     slots, the first step (admission and one block) runs unprofiled, and
     every later step is pure decode, one graph replay each.  Device time
@@ -774,7 +828,8 @@ def profile_decode(model, params, engine_cfg, requests=None,
     launch calls per block are counted by runtime API name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    engine = ServeEngine(model, params, engine_cfg, device="cuda")
+    engine = ServeEngine(model, params, engine_cfg, device="cuda",
+                         frontend=frontend)
     requests = requests or serve_requests(model.cfg.vocab)
     for r in requests[:engine_cfg.slots]:
         engine.submit(r)
@@ -2247,20 +2302,28 @@ def smoke_direct(model, params, cpu_params, phase: str, seed: int
 
 def smoke_streams(model, params, cpu_params, phase: str,
                   rng: np.random.Generator,
-                  backends=("paged", "contiguous")) -> dict:
+                  backends=("paged", "contiguous"), *,
+                  frontend: str | None = None, extra_shape=None,
+                  max_seq: int = 32) -> dict:
     """Greedy streams of the engine on each of ``backends`` (graphs on
-    the card), card against CPU: equal.  Returns tokens by backend."""
+    the card), card against CPU: equal.  With ``frontend``, each request
+    brings one seeded ``extra_shape`` input.  Returns tokens by
+    backend."""
     prompts = [rng.integers(0, model.cfg.vocab, n).tolist()
                for n in (5, 9, 9, 14, 3, 20)]
     budgets = (6, 4, 8, 3, 7, 5)
+    extras = [(rng.standard_normal(extra_shape).astype(np.float32),)
+              if frontend else () for _ in prompts]
     streams = {}
     for backend in backends:
-        cfg = EngineConfig(max_batch=4, max_seq=32, decode_block=4,
+        cfg = EngineConfig(max_batch=4, max_seq=max_seq, decode_block=4,
                            kv_backend=backend, page_size=8)
-        reqs = [Request(tokens=p, max_new_tokens=g)
-                for p, g in zip(prompts, budgets, strict=True)]
-        got = ServeEngine(model, params, cfg, device="cuda").generate(reqs)
-        want = ServeEngine(model, cpu_params, cfg, device="cpu").generate(
+        reqs = [Request(tokens=p, max_new_tokens=g, extra=e)
+                for p, g, e in zip(prompts, budgets, extras, strict=True)]
+        got = ServeEngine(model, params, cfg, device="cuda",
+                          frontend=frontend).generate(reqs)
+        want = ServeEngine(model, cpu_params, cfg, device="cpu",
+                           frontend=frontend).generate(
             [dataclasses.replace(r) for r in reqs])
         a = [(c.tokens, c.finish_reason) for c in got]
         b = [(c.tokens, c.finish_reason) for c in want]
@@ -2730,6 +2793,398 @@ def rg_serve() -> tuple[dict, dict]:
     return result, profile
 
 
+# ---------------------------------------------------------------- frontends
+
+# whisper-medium at published widths and full depth: 24 encoder + 24
+# decoder layers, d_model 1024, 16 heads of width 64 (g 1), 1500 frames;
+# llava-next-34b: 60 layers, d_model 7168, 56/8 heads of width 128 (g
+# 7), a 576-patch prefix (one base tile); bf16
+WHISPER_PARAMS = 792_032_256
+LLAVA_PARAMS = 34_388_917_248
+WHISPER_HEADS = {"n_q": 16, "n_kv": 16, "hd": 64}
+LLAVA_HEADS = {"n_q": 56, "n_kv": 8, "hd": 128}
+LLAVA_PATCHES = 576
+# whisper_serve's prompts (pairs of one length: admission groups of 2;
+# the published decoder stops at 448 positions) and engine: contiguous
+# lanes 448 deep, 8 slots, decode blocks of 8
+WHISPER_LENS = (16, 16, 48, 48, 96, 128, 128, 192, 256, 256, 320, 400)
+WHISPER_ENGINE = EngineConfig(max_batch=8, max_seq=448, decode_block=8)
+# llava_serve: the serve phase's text prompts after 576 patches, paged in
+# pages of 16 (70 pages a lane: 576 + 512 + 32 positions)
+LLAVA_ENGINE = EngineConfig(max_batch=8, max_seq=1120, decode_block=8,
+                            kv_backend="paged", page_size=16)
+# whisper_reference / llava_reference, card (kernels) against CPU (plain
+# versions), float32 smoke: within atol + rtol * |cpu|
+FRONTEND_REF_TOL = (1e-4, 1e-4)
+
+
+def flash_xcase(dtype, *, b, sq, sk, causal, seed=1, n_q=16, n_kv=16,
+                hd=64):
+    """Prefill attention of ``sq`` queries over ``sk`` keys from position
+    0, causal (``sq == sk``) or not: Whisper's encoder (1500 frames over
+    themselves), its cross prefill (a prompt over the frames) and its
+    decoder's self prefill."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+            .to("cuda", dtype)
+
+    q, k, v = rand(b, sq, n_q, hd), rand(b, sk, n_kv, hd), rand(b, sk, n_kv,
+                                                                  hd)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    flops = 4.0 * b * n_q * hd * pairs
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        # yardstick only: the port never calls it
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    shape = (f"b {b}, sq {sq}, sk {sk}, {n_q}/{n_kv} heads, hd {hd}, "
+             + ("causal" if causal else "non-causal"))
+    return (q, k, v), {"causal": causal}, nbytes, flops, library, shape
+
+
+def lane_case(dtype, *, depth, max_len, lanes=8, seed=5, n_q=16, n_kv=16,
+              hd=64):
+    """Decode over ``lanes`` contiguous lanes of ``depth`` keys seen as
+    pages, as ``WhisperModel.decode_step`` reads its cross and self lanes
+    (``WhisperModel.lane_table``, pages of ``lane_page(depth)``).  kv_len
+    ragged up to ``max_len`` (the first lane at 1, reading page 0; the
+    last at ``max_len``), or ``max_len`` for every lane when ``max_len ==
+    depth`` (the cross lanes)."""
+    from repro_torch.models.whisper import WhisperModel
+    model = WhisperModel(whisper_medium.CONFIG)
+    rng = np.random.default_rng(seed)
+    if max_len == depth:
+        kv_len = np.full(lanes, max_len)
+    else:
+        kv_len = rng.integers(1, max_len + 1, size=lanes)
+        kv_len[0], kv_len[-1] = 1, max_len
+    dev = "cuda"
+    ps = model.lane_page(depth)
+    table = model.lane_table(lanes, depth, dev)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+            .to(dev, dtype)
+
+    q = rand(lanes, n_q, hd)
+    k_pages = rand(lanes * depth // ps, ps, n_kv, hd)
+    v_pages = rand(lanes * depth // ps, ps, n_kv, hd)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    args = (q, k_pages, v_pages, table, lens)
+    es = q.element_size()
+    tokens = int(kv_len.sum())
+    nbytes = (2 * lanes * n_q * hd * es + 2 * tokens * n_kv * hd * es
+              + table.numel() * 4 + lanes * 4)
+    flops = 4.0 * n_q * hd * tokens
+    # the same lanes, contiguous: [lanes, heads, depth, hd]
+    qt = q[:, :, None]
+    kt = k_pages.reshape(lanes, depth, n_kv, hd).transpose(1, 2)
+    vt = v_pages.reshape(lanes, depth, n_kv, hd).transpose(1, 2)
+    mask = None
+    if max_len != depth:
+        mask = (torch.arange(depth, device=dev)
+                < lens[:, None].long())[:, None, None, :]
+
+    def library():
+        # yardstick only: the port never calls it
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    shape = (f"lanes {lanes}, {n_q}/{n_kv} heads, hd {hd}, lanes of "
+             f"{depth} as pages of {ps}, table {table.shape[1]}, kv_len "
+             + (f"{max_len}" if max_len == depth else f"<= {max_len}"))
+    return args, {}, nbytes, flops, library, shape
+
+
+WHISPER_CASES = {
+    "flash_attention": [
+        {"case": flash_xcase, "b": 2, "sq": 1500, "sk": 1500,
+         "causal": False, **WHISPER_HEADS},          # the encoder
+        {"case": flash_xcase, "b": 2, "sq": 400, "sk": 1500,
+         "causal": False, **WHISPER_HEADS},          # cross prefill
+        {"case": flash_xcase, "b": 2, "sq": 400, "sk": 400,
+         "causal": True, **WHISPER_HEADS},           # decoder self
+        {"case": flash_xcase, "b": 8, "sq": 1500, "sk": 1500,
+         "causal": False, **WHISPER_HEADS}],
+    "paged_attention": [
+        {"case": lane_case, "depth": 1500, "max_len": 1500},   # cross
+        {"case": lane_case, "depth": 448, "max_len": 431}],    # self
+}
+LLAVA_CASES = {
+    "flash_attention": [{"b": 2, "s": 896, **LLAVA_HEADS},
+                        {"b": 1, "s": 1088, **LLAVA_HEADS}],
+    "paged_attention": [{"mb": 70, "max_len": 1120, **LLAVA_HEADS}],
+}
+
+
+def _frontend_direct(model, params, toks, feed, extra, device,
+                     frontend) -> dict:
+    """A frontend smoke model on ``device`` outside the engine: logits of
+    the full forward, the loss, a prefill (flash on the card) and
+    ``feed.shape[1]`` decode steps (paged on the card: Whisper over its
+    lanes, llava over pages scattered from the prefilled lanes)."""
+    b, s = toks.shape
+    t = torch.from_numpy(toks).long().to(device)
+    e = torch.from_numpy(extra).to(device)
+    out = {}
+    with torch.no_grad():
+        if frontend == "audio":
+            out["apply"] = model.apply(params, t, e)
+            out["loss"] = model.loss(params, {"tokens": t, "labels": t,
+                                              "frames": e})
+            prefix, depth = 0, s + feed.shape[1]
+            lg, cache = model.prefill(params, t, model.init_cache(
+                b, depth, device=device), e)
+        else:
+            out["apply"] = model.apply(params, t, embeds=e)
+            out["loss"] = model.loss(params, {"tokens": t, "labels": t,
+                                              "embeds": e})
+            prefix = e.shape[1]
+            depth = prefix + s + feed.shape[1]
+            depth += (-depth) % 8
+            lg, cache = model.prefill(params, t, model.init_cache(
+                b, depth, device=device), embeds=e)
+            pages, bt = _paged_from_lanes(model, cache, 8)
+            active = torch.ones(b, dtype=torch.bool, device=device)
+        steps = [lg]
+        for i in range(feed.shape[1]):
+            tok = torch.from_numpy(feed[:, i:i + 1]).long().to(device)
+            pos = torch.full((b,), prefix + s + i, dtype=torch.int32,
+                             device=device)
+            if frontend == "audio":
+                lg, cache = model.decode_step(params, cache, tok, pos)
+            else:
+                lg, pages = model.decode_step_paged(params, pages, tok, pos,
+                                                    bt, active)
+            steps.append(lg)
+        out["prefill_decode"] = torch.cat(steps, 1)
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def frontend_reference(phase: str, model, frontend: str, extra_len: int,
+                       backends, seed: int) -> dict:
+    """A frontend's smoke config (float32) on the card (the flash and
+    paged kernels, decode blocks as graph replays) against the CPU
+    (plain versions), same weights: logits of the forward, of a prefill
+    and of 6 decode steps and the loss within ``FRONTEND_REF_TOL``, both
+    kernels launched; the engine's greedy streams on ``backends`` equal,
+    each request with its own seeded extra input."""
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    params = _to(cpu_params, "cuda")
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (3, 13)).astype(np.int64)
+    feed = rng.integers(0, cfg.vocab, (3, 6)).astype(np.int64)
+    extra = rng.standard_normal((3, extra_len, cfg.d_model)).astype(
+        np.float32)
+    f0, p0 = flash_attention.launches, paged_attention.launches
+    card = _frontend_direct(model, params, toks, feed, extra, "cuda",
+                            frontend)
+    launched = {"flash_attention": flash_attention.launches - f0,
+                "paged_attention": paged_attention.launches - p0}
+    if min(launched.values()) <= 0:
+        raise RuntimeError(f"{phase} did not go through both kernels: "
+                           f"{launched}")
+    cpu = _frontend_direct(model, cpu_params, toks, feed, extra, "cpu",
+                           frontend)
+    out = {"phase": phase, "logit_tol": FRONTEND_REF_TOL,
+           "frontend": frontend, "extra_len": extra_len,
+           "prefill_len": toks.shape[1], "decode_steps": feed.shape[1],
+           "kernel_launches": launched}
+    for key in card:
+        err, excess = _max_excess(card[key], cpu[key], FRONTEND_REF_TOL)
+        if excess > 0 or not torch.isfinite(card[key]).all():
+            raise RuntimeError(f"{phase} {key}: differs by {err}")
+        out[f"max_abs_err_{key}"] = err
+    prefix = extra_len if frontend == "vision" else 0
+    out["stream_tokens_equal"] = smoke_streams(
+        model, params, cpu_params, phase, rng, backends, frontend=frontend,
+        extra_shape=(extra_len, cfg.d_model),
+        max_seq=32 + prefix + (-prefix) % 8)
+    del params, cpu_params
+    _free()
+    return out
+
+
+def frontend_requests(lens, seed: int, extra_shape):
+    """``make_requests`` of a frontend's serve phase: the serve phase's
+    requests over ``lens``, each with seeded random float32 extras of
+    ``extra_shape`` (the same draws on every call)."""
+    def make(vocab, eos_req=None, eos_id=None):
+        reqs = serve_requests(vocab, eos_req, eos_id, lens=lens, seed=seed)
+        rng = np.random.default_rng(seed + 100)
+        return [dataclasses.replace(r, extra=(rng.standard_normal(
+            extra_shape, dtype=np.float32),)) for r in reqs]
+    return make
+
+
+def decode_positions(comps, prefix: int = 0):
+    """The positions every request decoded at, from its completion: a
+    request of prompt length L emitting n tokens decodes at ``prefix + L
+    .. prefix + L + n - 2``."""
+    return [pos for c in comps
+            for pos in range(prefix + c.n_prompt,
+                             prefix + c.n_prompt + len(c.tokens) - 1)]
+
+
+def whisper_serve() -> tuple[dict, dict]:
+    """whisper-medium at published widths and full depth, random bf16
+    weights: 12 requests of ``WHISPER_LENS`` with seeded frames [1500,
+    1024] on the contiguous engine (8 slots, lanes of 448, decode block
+    8, graphs): flash 72 launches a prefill call (24 encoder, 24 x 2
+    decoder), paged 48 x ``decode_block`` a replay (self and cross);
+    then its decode blocks under the profiler.  Returns (serve result,
+    profile)."""
+    from repro_torch.models.whisper import WhisperModel
+    model = WhisperModel(whisper_medium.CONFIG)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n = count_params(params)
+    if not n == model.param_count() == WHISPER_PARAMS:
+        raise RuntimeError(f"whisper parameters: {n}, the config counts "
+                           f"{model.param_count()}, want {WHISPER_PARAMS}")
+    cfg = model.cfg
+    make = frontend_requests(WHISPER_LENS, 8, (cfg.n_frames, cfg.d_model))
+    kernels = {"flash_attention": flash_attention,
+               "paged_attention": paged_attention}
+    common, engine, launches = drive_serve(model, params, WHISPER_ENGINE,
+                                           make, kernels, frontend="audio")
+    per_replay = 2 * cfg.n_dec_layers * WHISPER_ENGINE.decode_block
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    held = engine.block_stats.captured_launches
+    if common["graphs_captured"] != 2 or engine._attn_scratch is None \
+            or any(h != {"paged_attention": per_replay}
+                   for h in held.values()) \
+            or common["eager_launches"]["paged_attention"] != 0 \
+            or launches["paged_attention"] != per_replay * common["replays"] \
+            or launches["flash_attention"] != \
+            per_prefill * common["prefill_batches"]:
+        raise RuntimeError(
+            f"whisper_serve launches {launches} ({common['eager_launches']} "
+            f"eager) over {common['replays']} replays of graphs holding "
+            f"{held} and {common['prefill_batches']} prefill calls; want "
+            f"paged {per_replay} a replay, flash {per_prefill} a prefill")
+    # what a tick must read: the decoder's weights, the tied table whole
+    # (as the head), and the live lanes' cross K/V (every frame) and
+    # self K/V (pos + 1 keys), their mean over the run's ticks
+    comps = engine.take_completed()
+    es = torch.tensor([], dtype=cfg.dtype).element_size()
+    # (not the cross projections wk and wv: cross K/V was cached at
+    # prefill, and decode never reads them)
+    cross = params["dec_blocks"]["cross_attn"]
+    weight_bytes = sum(_nbytes(t) for t in tree_leaves(params["dec_blocks"])) \
+        - sum(_nbytes(t) for t in tree_leaves({"wk": cross["wk"], "wv": cross["wv"]})) \
+        + _nbytes(params["embed"]["table"]) \
+        + sum(_nbytes(t) for t in tree_leaves(params["head"]))
+    per_key = 2 * cfg.d_model * es * cfg.n_dec_layers
+    positions = decode_positions(comps)
+    cross_read = per_key * cfg.n_frames * len(positions) / common["ticks_run"]
+    self_read = per_key * sum(p + 1 for p in positions) / common["ticks_run"]
+    bound_ms = (weight_bytes + cross_read + self_read) / HBM_BYTES_PER_S * 1e3
+    arena = engine.pool.arena
+    cross_bytes = _nbytes(arena["cross_k"]) + _nbytes(arena["cross_v"])
+    result = {
+        "phase": "whisper_serve", **common, "backend": "contiguous",
+        "frames": cfg.n_frames, "heads": cfg.n_heads, "head_dim": cfg.hd,
+        "enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_dec_layers,
+        "prompt_lens": list(WHISPER_LENS),
+        "max_seq": WHISPER_ENGINE.max_seq,
+        "cross_kv_bytes": cross_bytes,
+        "self_kv_bytes": engine.pool.kv_bytes() - cross_bytes,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "tick_weight_bytes": weight_bytes,
+        "tick_cross_read_bytes_mean": cross_read,
+        "tick_self_read_bytes_mean": self_read,
+        "bound_ms_per_tick": bound_ms,
+        "share_of_bound": bound_ms / common["ms_per_decode_tick"],
+    }
+    del engine
+    _free()
+    profile = profile_decode(model, params, WHISPER_ENGINE,
+                             make(cfg.vocab), "whisper_profile",
+                             frontend="audio")
+    del model, params
+    _free()
+    return result, profile
+
+
+def llava_serve() -> tuple[dict, dict]:
+    """llava-next-34b at published widths and full depth, random bf16
+    weights (68.78 GB, drawn on the card a leaf slice at a time): 12
+    requests of the serve phase's text lengths after seeded patch
+    embeddings [576, 7168], paged in pages of 16 (8 slots, 70 pages a
+    lane, decode block 8, graphs): flash 60 launches a prefill call,
+    paged 60 x ``decode_block`` a replay; then its decode blocks under
+    the profiler.  Returns (serve result, profile)."""
+    _free()
+    model = DecoderLM(llava_next_34b.CONFIG)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n = count_params(params)
+    if not n == model.param_count() == LLAVA_PARAMS:
+        raise RuntimeError(f"llava parameters: {n}, the config counts "
+                           f"{model.param_count()}, want {LLAVA_PARAMS}")
+    cfg = model.cfg
+    make = frontend_requests(SERVE_LENS, 9, (LLAVA_PATCHES, cfg.d_model))
+    kernels = {"flash_attention": flash_attention,
+               "paged_attention": paged_attention}
+    common, engine, launches = drive_serve(model, params, LLAVA_ENGINE,
+                                           make, kernels, frontend="vision")
+    per_replay = cfg.n_layers * LLAVA_ENGINE.decode_block
+    held = engine.block_stats.captured_launches
+    if common["graphs_captured"] != 2 \
+            or any(h != {"paged_attention": per_replay}
+                   for h in held.values()) \
+            or common["eager_launches"]["paged_attention"] != 0 \
+            or launches["paged_attention"] != per_replay * common["replays"] \
+            or launches["flash_attention"] != \
+            cfg.n_layers * common["prefill_batches"]:
+        raise RuntimeError(
+            f"llava_serve launches {launches} ({common['eager_launches']} "
+            f"eager) over {common['replays']} replays of graphs holding "
+            f"{held} and {common['prefill_batches']} prefill calls; want "
+            f"paged {per_replay} a replay, flash {cfg.n_layers} a prefill")
+    # what a tick must read: every weight but the embedding table (of
+    # which it reads 8 rows; the untied head is read whole), and the live
+    # lanes' K/V, pos + 1 keys each, their mean over the run's ticks
+    comps = engine.take_completed()
+    weight_bytes = sum(_nbytes(t) for t in tree_leaves(params)) \
+        - _nbytes(params["embed"]["table"])
+    per_token = engine.pool.page_bytes() // LLAVA_ENGINE.page_size
+    positions = decode_positions(comps, LLAVA_PATCHES)
+    kv_read = per_token * sum(p + 1 for p in positions) / common["ticks_run"]
+    bound_ms = (weight_bytes + kv_read) / HBM_BYTES_PER_S * 1e3
+    result = {
+        "phase": "llava_serve", **common, "backend": "paged",
+        "patches": LLAVA_PATCHES,
+        "heads": f"{cfg.n_heads}/{cfg.n_kv_heads}", "head_dim": cfg.hd,
+        "prompt_lens": list(SERVE_LENS), "max_seq": LLAVA_ENGINE.max_seq,
+        "kv_bytes_per_token": per_token,
+        "peak_pages_in_use": engine.pool.peak_pages_in_use,
+        "peak_kv_bytes": engine.pool.peak_kv_bytes(),
+        "pool_bytes": engine.pool.kv_bytes(),
+        "weight_bytes": sum(_nbytes(t) for t in tree_leaves(params)),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "depth_cuts": [],
+        "launches": launches,
+        "tick_weight_bytes": weight_bytes,
+        "tick_kv_read_bytes_mean": kv_read,
+        "bound_ms_per_tick": bound_ms,
+        "share_of_bound": bound_ms / common["ms_per_decode_tick"],
+    }
+    del engine
+    _free()
+    profile = profile_decode(model, params, LLAVA_ENGINE, make(cfg.vocab),
+                             "llava_profile", frontend="vision")
+    del model, params
+    _free()
+    return result, profile
+
+
 def ptxas(source: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel compiled
     from ``csrc/<source>.cu``, from ``nvcc -Xptxas -v`` in this run's
@@ -2909,6 +3364,26 @@ def main() -> int:
     emit(result)
     emit(profile)
     rows += kernel_rows(kernels, result["launches"], "rg_serve")
+
+    kernels = [check_kernel(k, WHISPER_CASES[k]) for k in WHISPER_CASES]
+    from repro_torch.models.whisper import WhisperModel
+    emit(frontend_reference("whisper_reference",
+                            WhisperModel(whisper_medium.SMOKE), "audio",
+                            whisper_medium.SMOKE.n_frames,
+                            ("contiguous",), 15))
+    result, profile = whisper_serve()
+    emit(result)
+    emit(profile)
+    rows += kernel_rows(kernels, result["launches"], "whisper_serve")
+
+    kernels = [check_kernel(k, LLAVA_CASES[k]) for k in LLAVA_CASES]
+    emit(frontend_reference("llava_reference",
+                            DecoderLM(llava_next_34b.SMOKE), "vision", 8,
+                            ("paged", "contiguous"), 16))
+    result, profile = llava_serve()
+    emit(result)
+    emit(profile)
+    rows += kernel_rows(kernels, result["launches"], "llava_serve")
 
     emit({"kernels": rows})
     print(smi, flush=True)

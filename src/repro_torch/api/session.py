@@ -49,6 +49,7 @@ from ..optim import make_optimizer
 from ..runtime import (Runner, RunnerConfig, StepConfig, TrainState,
                        init_train_state)
 from ..runtime.runner import reshard_train_state
+from ..runtime.step import prefix_len
 from ..serve import EngineConfig, ServeEngine
 from ..tree import tree_map
 from .registry import get_strategy
@@ -140,6 +141,7 @@ class Session:
         self.device = resolve_device(device)
         self.strategy = get_strategy(cfg.algo)
         self._model = model
+        self._frontend: str | None = None
         self._data = data
         self._owns_data = data is None
         self._profile: LayerProfile | None = None
@@ -148,7 +150,7 @@ class Session:
         self._runner: Any = None            # Runner or AsyncHierRunner
         self._state: TrainState | None = None
         self._step = 0
-        self._engines: dict[tuple[EngineConfig, int], ServeEngine] = {}
+        self._engines: dict[tuple, ServeEngine] = {}
 
     # ------------------------------------------------------------ lazy parts
     @property
@@ -158,6 +160,7 @@ class Session:
             arch = get_arch(self.cfg.arch)
             self._model = (arch.make_smoke() if self.cfg.smoke
                            else arch.make_model())
+            self._frontend = arch.frontend
         return self._model
 
     @property
@@ -443,7 +446,9 @@ class Session:
         """The inference path: a continuous-batching :class:`ServeEngine`
         over one replica, on the session's device.
 
-        Engines are memoized per ``(config, worker)``: a repeated
+        The engine takes the arch's frontend (``"vision"``,
+        ``"audio"``), so its requests bring their ``extra`` inputs.
+        Engines are memoized per ``(frontend, config, worker)``: a repeated
         ``serve()`` after more ``fit()`` reuses the engine (its pool and
         captured decode graphs) and copies the replica's current values
         into its parameters.  The engine holds its own copy of them, so
@@ -453,19 +458,20 @@ class Session:
         first.
         """
         cfg = config or EngineConfig()
-        key = (cfg, worker)
+        model = self.model                  # also resolves self._frontend
+        key = (self._frontend, cfg, worker)
         if self._state is not None:
             params = worker_unstack(self._state.params, worker)
         elif self._params is not None:
             params = tree_map(lambda x: x.to(self.device), self._params)
         else:       # the initial parameters, the ones fit() starts from
-            params = self.model.init(
+            params = model.init(
                 torch.Generator(self.device).manual_seed(self.cfg.seed))
         engine = self._engines.get(key)
         if engine is None:
             engine = ServeEngine(
-                self.model, tree_map(lambda x: x.detach().clone(), params),
-                cfg, device=self.device)
+                model, tree_map(lambda x: x.detach().clone(), params),
+                cfg, device=self.device, frontend=self._frontend)
             self._engines[key] = engine
         else:
             if engine.has_work:
@@ -549,13 +555,14 @@ class Session:
 class InferenceSession:
     """Deprecated shim over :class:`~repro_torch.serve.ServeEngine`.
 
-    Keeps the old ``generate(tokens, max_new_tokens)`` call alive by
-    delegating to an engine's array form (greedy, no EOS exit: the old
+    Keeps the old ``generate(tokens, max_new_tokens, *extra)`` call alive
+    by delegating to an engine's array form (greedy, no EOS exit: the old
     loop's tokens).  New code should use ``Session.serve()``, which
     returns the engine.  The engine reads ``params`` in place.
     """
 
-    def __init__(self, model, params, *, config: EngineConfig | None = None,
+    def __init__(self, model, params, *, frontend: str | None = None,
+                 config: EngineConfig | None = None,
                  device: str | torch.device | None = None):
         warnings.warn(
             "InferenceSession is deprecated: Session.serve() returns a "
@@ -565,13 +572,16 @@ class InferenceSession:
         self.model = model
         self.params = params
         self.device = resolve_device(device)
+        self.frontend = frontend
         self._config = config
         self.engine: ServeEngine | None = None
 
-    def generate(self, tokens, max_new_tokens: int = 16) -> torch.Tensor:
-        """Prefill ``tokens`` ``[B, S]`` then decode greedily: ``[B,
+    def generate(self, tokens, max_new_tokens: int = 16,
+                 *extra) -> torch.Tensor:
+        """Prefill ``tokens`` ``[B, S]`` (with the frontend's inputs
+        ``extra``, each ``[B, ...]``) then decode greedily: ``[B,
         max_new_tokens]`` int32."""
-        need = tokens.shape[1] + max(max_new_tokens, 0)
+        need = prefix_len(self.frontend, extra) + tokens.shape[1] + max(max_new_tokens, 0)
         # the old loop sized its cache per call; grow max_seq to match so
         # any request the old loop handled still works
         if self.engine is None or need > self.engine.config.max_seq:
@@ -582,6 +592,6 @@ class InferenceSession:
             self.engine = ServeEngine(
                 self.model, self.params,
                 dataclasses.replace(base, max_seq=max_seq),
-                device=self.device)
+                device=self.device, frontend=self.frontend)
         self.engine.reset(params=self.params)
-        return self.engine.generate(tokens, max_new_tokens)
+        return self.engine.generate(tokens, max_new_tokens, *extra)

@@ -22,6 +22,19 @@ ring of ``window`` keys).  On the CPU::
         --arch recurrentgemma-9b --smoke --device cpu --batch 3 \\
         --prompt-len 12 --gen 10
 
+The frontends: ``--arch whisper-medium`` gives each request seeded random
+audio frames ``[n_frames, d_model]`` (contiguous backend only: Whisper's
+cross K/V has nothing to page), ``--arch llava-next-34b`` seeded patch
+embeddings ``[8, d_model]`` before its prompt, as the reference CLI
+does::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --smoke --device cpu --batch 2 \
+        --prompt-len 4 --gen 3
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llava-next-34b --smoke --device cpu --kv-backend paged \
+        --batch 2 --prompt-len 6 --gen 4
+
 Trace-driven mode — ``--requests`` takes a JSON file with a list of
 request dicts (``tokens`` or ``prompt_len``, ``max_new_tokens``, optional
 ``eos_id`` / ``temperature`` / ``top_k`` / ``seed``).  ``--smoke`` runs
@@ -34,6 +47,9 @@ import argparse
 import json
 
 import numpy as np
+
+# patch embeddings drawn for each request of a vision arch
+N_PATCHES = 8
 
 
 def _load_trace(path: str, vocab: int, rng) -> list[dict]:
@@ -83,6 +99,7 @@ def main(argv=None) -> int:
 
     from ..configs import get_arch
     from ..device import resolve_device
+    from ..runtime.step import prefix_len
     from ..serve import EngineConfig, Request, SamplingParams, ServeEngine
 
     device = resolve_device(args.device)
@@ -99,6 +116,16 @@ def main(argv=None) -> int:
                                         size=args.prompt_len).tolist(),
                   "max_new_tokens": args.gen}
                  for _ in range(args.batch)]
+
+    def req_extra(r):
+        if arch.frontend == "audio":
+            return (np.asarray(rng.standard_normal(
+                (cfg.n_frames, cfg.d_model)), np.float32),)
+        if arch.frontend == "vision":
+            return (np.asarray(rng.standard_normal(
+                (N_PATCHES, cfg.d_model)), np.float32),)
+        return ()
+
     requests = [
         Request(tokens=r["tokens"],
                 max_new_tokens=int(r["max_new_tokens"]),
@@ -106,11 +133,13 @@ def main(argv=None) -> int:
                 sampling=SamplingParams(
                     temperature=float(r.get("temperature", 0.0)),
                     top_k=int(r.get("top_k", 0)),
-                    seed=int(r.get("seed", 0))))
+                    seed=int(r.get("seed", 0))),
+                extra=req_extra(r))
         for r in trace]
 
-    max_seq = args.max_seq or max(len(r.tokens) + r.max_new_tokens
-                                  for r in requests)
+    max_seq = args.max_seq or max(
+        prefix_len(arch.frontend, r.extra) + len(r.tokens) + r.max_new_tokens
+        for r in requests)
     if args.kv_backend == "paged":       # pages divide the lane evenly
         max_seq += (-max_seq) % args.page_size
     engine = ServeEngine(
@@ -123,7 +152,7 @@ def main(argv=None) -> int:
                      page_size=args.page_size,
                      kv_pages=args.kv_pages,
                      batched_admission=not args.serial_admission),
-        device=device)
+        device=device, frontend=arch.frontend)
 
     completions = engine.generate(requests)
     engine.take_completed()     # drain the bounded completion history

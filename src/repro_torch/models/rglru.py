@@ -470,11 +470,13 @@ class RGLM:
             self._ring_tables[key] = table
         return table
 
-    def decode_scratch(self, lanes: int, device):
+    def decode_scratch(self, lanes: int, device, max_seq: int | None = None):
         """The paged kernel's split-K scratch for ``lanes``-wide decode
         steps on ``device`` (``None`` when a launch needs none): a
         caller whose launches must keep their addresses (a captured
-        CUDA graph) owns it and passes it to every step."""
+        CUDA graph) owns it and passes it to every step.  ``max_seq``
+        does not enter: the rings are ``window`` keys at any depth."""
+        del max_seq
         cfg = self.cfg
         return launch_scratch(lanes, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                               2 * cfg.window // self.ring_page,

@@ -20,6 +20,11 @@ rope]}`` in the same two layouts.  Prefill and decode write them **in
 place** and return the same dict (the reference returns a new one): a
 full-width pool is too large to copy per token.
 
+A vision frontend (llava) brings ``embeds [b, n, d]``, patch
+embeddings that ``apply``, ``loss`` and ``prefill`` prepend to the
+token embeddings (cast to the parameter dtype); they take positions
+``[0, n)``, the text follows, and the loss covers the text tail only.
+
 GQA prefill attention goes through the flash kernel (CUDA on the card,
 its plain version on the CPU); GQA paged decode goes through the paged
 kernel.  Contiguous decode, ``apply`` and the training ``loss`` use the
@@ -255,10 +260,21 @@ class DecoderLM:
             return x @ params["embed"]["table"].T
         return dense(params["head"]["out"], x)
 
-    def _backbone(self, params, tokens, positions=None, *,
+    def _embed(self, params, tokens, embeds) -> torch.Tensor:
+        """Token embeddings, with ``embeds [b, n, d]`` (a vision prefix
+        of patch embeddings) cast to the parameter dtype and prepended."""
+        parts = []
+        if embeds is not None:
+            parts.append(embeds.to(self.cfg.dtype))
+        if tokens is not None:
+            parts.append(embed(params["embed"], tokens))
+        return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+
+    def _backbone(self, params, tokens, positions=None, *, embeds=None,
                   remat: bool = False) -> torch.Tensor:
-        """Embed + block stack -> final hidden states ``[b, s, d]``."""
-        x = embed(params["embed"], tokens)
+        """Embed (``embeds`` prepended) + block stack -> final hidden
+        states ``[b, n + s, d]``."""
+        x = self._embed(params, tokens, embeds)
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
@@ -268,16 +284,21 @@ class DecoderLM:
 
         return self._blocks(params, x, attend, remat=remat)
 
-    def apply(self, params, tokens, *, positions=None) -> torch.Tensor:
-        """Full-sequence forward -> logits ``[b, s, vocab]``."""
-        return self._head(params, self._backbone(params, tokens, positions))
+    def apply(self, params, tokens=None, *, embeds=None,
+              positions=None) -> torch.Tensor:
+        """Full-sequence forward -> logits ``[b, n + s, vocab]`` (``embeds
+        [b, n, d]``: a prefix of patch embeddings)."""
+        return self._head(params, self._backbone(params, tokens, positions,
+                                                 embeds=embeds))
 
     # ----------------------------------------------------------------- loss
     def loss(self, params, batch, *,
              segment_cuts: tuple[int, ...] = ()) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch = {tokens, labels}``
         (``[b, s]`` each), float32; with ``mtp``, plus ``mtp_weight``
-        times the multi-token-prediction loss.
+        times the multi-token-prediction loss.  With ``batch["embeds"]``
+        (``[b, n, d]``, a vision prefix) the loss covers the text tail
+        only.
 
         ``segment_cuts`` is accepted for the reference's signature: there
         it splits the layer scan so XLA can overlap a phase's sync with
@@ -285,8 +306,11 @@ class DecoderLM:
         (the overlap it serves is ROADMAP.md queue A item 6)."""
         del segment_cuts
         cfg = self.cfg
-        x = self._backbone(params, batch["tokens"],
+        embeds = batch.get("embeds")
+        x = self._backbone(params, batch.get("tokens"), embeds=embeds,
                            remat=cfg.remat and torch.is_grad_enabled())
+        if embeds is not None:           # VLM: loss on the text tail only
+            x = x[:, embeds.shape[1]:]
         logits = self._head(params, x)
         labels = batch["labels"]
         loss = softmax_xent(logits[:, :-1], labels[:, 1:])
@@ -339,10 +363,12 @@ class DecoderLM:
     def init_cache(self, batch: int, max_seq: int, *, device) -> Tree:
         return self._kv((batch, max_seq), device=device)
 
-    def prefill(self, params, tokens, cache) -> tuple[torch.Tensor, Tree]:
+    def prefill(self, params, tokens, cache, *,
+                embeds=None) -> tuple[torch.Tensor, Tree]:
         """Write ``tokens``' KV into positions ``[0, s)`` of every lane of
         ``cache`` (in place) and return (last-token logits ``[b, 1,
-        vocab]``, cache).
+        vocab]``, cache).  ``embeds [b, n, d]`` (a vision prefix) takes
+        positions ``[0, n)`` and the prompt ``[n, n + s)``.
 
         Prefill always starts at position 0, so its attention is causal
         over ``[0, s)`` — exactly the flash kernel's contract.  The
@@ -350,7 +376,7 @@ class DecoderLM:
         masked, which is the same function.
         """
         cfg = self.cfg
-        x = embed(params["embed"], tokens)
+        x = self._embed(params, tokens, embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
 

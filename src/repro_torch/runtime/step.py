@@ -39,6 +39,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -52,7 +53,8 @@ from ..tree import tree_leaves, tree_map
 __all__ = ["TrainState", "StepConfig", "init_train_state",
            "per_worker_grads", "make_train_step", "make_phase_steps",
            "compose_makeup_step", "make_period_step",
-           "slot_prefill", "slot_decode", "slot_decode_paged"]
+           "prefix_len", "model_prefill", "slot_prefill", "slot_decode",
+           "slot_decode_paged"]
 
 Tree = Any
 
@@ -266,23 +268,55 @@ def make_period_step(model, optimizer, plan: SyncPlan, *,
 # ---------------------------------------------------------------------------
 
 
+def prefix_len(frontend: str | None, extra) -> int:
+    """Cache positions a frontend's inputs take before the prompt: a
+    vision prefix's patches (``extra[0]`` ``[n, d]``, or ``[B, n, d]``
+    for a batch); audio frames go to the cross lane, not the
+    positions."""
+    if frontend == "vision" and extra:
+        return int(np.shape(extra[0])[-2])
+    return 0
+
+
+def model_prefill(model, params, tokens: torch.Tensor, cache: Tree,
+                  *extra: torch.Tensor, frontend: str | None = None
+                  ) -> tuple[torch.Tensor, Tree]:
+    """``model.prefill`` with the frontend's inputs (the reference's
+    ``make_prefill_step``): audio frames ``[b, n_frames, d]`` as
+    Whisper's fourth argument, vision patches ``[b, n, d]`` as
+    ``embeds``; no frontend takes no extra input."""
+    if frontend == "audio":
+        return model.prefill(params, tokens, cache, *extra)
+    if frontend == "vision":
+        (embeds,) = extra
+        return model.prefill(params, tokens, cache, embeds=embeds)
+    if extra:
+        raise ValueError(f"{len(extra)} frontend inputs for a model "
+                         "served without a frontend")
+    return model.prefill(params, tokens, cache)
+
+
 def slot_prefill(model, params, tokens: torch.Tensor, depth: int,
-                 refeed: tuple[torch.Tensor, torch.Tensor] | None = None
+                 refeed: tuple[torch.Tensor, torch.Tensor] | None = None,
+                 *extra: torch.Tensor, frontend: str | None = None
                  ) -> tuple[torch.Tensor, Tree]:
     """Prefill K same-length requests into K fresh cache lanes.
 
     ``tokens [K, S]`` (one row per request, all padded to one bucket
-    length; K = 1 is the serial path); the lanes are ``depth >= S``
-    deep and every lane writes from position 0, the model's native
-    prefill contract.  With ``refeed = (tok [K], pos [K])`` the last
-    prompt token of each lane is decoded again at its own position —
-    after a right-padded prefill the last logits belong to a pad, and
-    this recovers the true ones (it rewrites the identical KV entry and
-    attends the same causal window).  Returns (logits ``[K, V]``, lanes)
-    for the caller to commit into its pool.
+    length; K = 1 is the serial path); the lanes are ``depth`` deep
+    (the prompt and a vision prefix at most) and every lane writes from
+    position 0, the model's native prefill contract.  ``extra``: the
+    frontend's inputs stacked ``[K, ...]`` (see :func:`model_prefill`).
+    With ``refeed = (tok [K], pos [K])`` the last prompt token of each
+    lane is decoded again at its own position — after a right-padded
+    prefill the last logits belong to a pad, and this recovers the true
+    ones (it rewrites the identical KV entry and attends the same causal
+    window).  Returns (logits ``[K, V]``, lanes) for the caller to
+    commit into its pool.
     """
     lanes = model.init_cache(tokens.shape[0], depth, device=tokens.device)
-    logits, lanes = model.prefill(params, tokens, lanes)
+    logits, lanes = model_prefill(model, params, tokens, lanes, *extra,
+                                  frontend=frontend)
     if refeed is not None:
         tok, pos = refeed
         logits, lanes = model.decode_step(params, lanes, tok[:, None], pos)

@@ -16,7 +16,7 @@ Counterpart of ``repro.serve``::
 from .cache import CachePool, PagedCachePool
 from .config import EngineConfig
 from .engine import ServeEngine
-from .naive import NaiveLoop
+from .naive import NaiveLoop, naive_generate
 from .sampling import make_token_sampler
 from .scheduler import RequestState, Scheduler
 from .types import Completion, EngineStats, Request, SamplingParams
@@ -24,6 +24,6 @@ from .types import Completion, EngineStats, Request, SamplingParams
 __all__ = [
     "Request", "SamplingParams", "Completion", "EngineStats",
     "EngineConfig", "ServeEngine", "CachePool", "PagedCachePool",
-    "Scheduler", "RequestState", "NaiveLoop",
+    "Scheduler", "RequestState", "NaiveLoop", "naive_generate",
     "make_token_sampler",
 ]

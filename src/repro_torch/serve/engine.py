@@ -1,10 +1,11 @@
 """ServeEngine — continuous-batching inference over a slot-pooled cache.
 
 Counterpart of ``repro.serve.engine`` for the decoder LM (dense, MoE
-and MLA; both cache backends), Mamba-2 and the Griffin hybrid (the
-contiguous backend: their lanes are fixed conv windows and recurrent
-states, and Griffin's attention a ring of ``window`` keys, with nothing
-to page).
+and MLA, and llava's vision prefix; both cache backends), Mamba-2, the
+Griffin hybrid and the Whisper encoder-decoder (the contiguous backend:
+their lanes are fixed conv windows and recurrent states, Griffin's
+attention a ring of ``window`` keys and Whisper's cross K/V one lane of
+``n_frames`` keys, with nothing to page).
 Requests are data (:class:`~repro_torch.serve.types.Request`),
 admission is the :class:`~repro_torch.serve.scheduler.Scheduler`'s, and
 decoding runs ``decode_block`` slot-wide ticks between scheduler
@@ -36,8 +37,9 @@ graph reads stays at its address for the engine's life: the parameters
 (``reset(params=...)`` copies new values into the same tensors), the
 pool, the state buffers and the paged kernel's split-K scratch, which
 the engine owns (none for MLA, whose paged decode runs no kernel; one
-for the Griffin hybrid on the contiguous backend, whose decode runs the
-kernel over its rings, from the model's ``decode_scratch``).
+for the Griffin hybrid and Whisper on the contiguous backend, whose
+decode runs the kernel over their rings or lanes, from the model's
+``decode_scratch``).
 :attr:`ServeEngine.block_stats` records the graphs, their capture time,
 the kernel launches each graph holds, and the blocks and ticks run.
 
@@ -56,7 +58,13 @@ Entry points::
         engine.step()                      # one admission + decode block
     engine.drain(); engine.reset(params=p)
 
-Frontends (vision patches, audio frames) are not ported yet.
+Frontends (``frontend=``): each request of a ``"vision"`` engine brings
+one ``extra`` input, its patch embeddings ``[n, d]``, which take cache
+positions ``[0, n)`` before the prompt; each request of an ``"audio"``
+engine brings its frames ``[n_frames, d]``, which Whisper encodes into
+the cross lane and which take no self position.  Extras ride through
+serial, batched and paged admission stacked ``[K, ...]``; an engine
+without a frontend refuses them.
 """
 
 from __future__ import annotations
@@ -76,7 +84,8 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_attention.ops import launch_scratch
 from ..kernels.ssd_scan import ssd_chunk_grouped
-from ..runtime.step import slot_decode, slot_decode_paged, slot_prefill
+from ..runtime.step import (prefix_len, slot_decode, slot_decode_paged,
+                            slot_prefill)
 from ..tree import tree_map
 from .cache import CachePool, PagedCachePool
 from .config import EngineConfig
@@ -182,12 +191,18 @@ class ServeEngine:
     ``cuda_graphs=False`` on CUDA runs the same body eagerly, the
     oracle a graph is held to.  ``keep_logits`` keeps the last block's
     logits, ``[decode_block, n_slots, vocab]``, in :attr:`last_logits`.
+    ``frontend`` (``"vision"`` or ``"audio"``, the arch's
+    ``ArchSpec.frontend``) takes each request's ``extra`` input.
     """
 
     def __init__(self, model, params: Tree,
                  config: EngineConfig | None = None, *, device=None,
                  cuda_graphs: bool | None = None,
-                 keep_logits: bool = False):
+                 keep_logits: bool = False, frontend: str | None = None):
+        if frontend not in (None, "audio", "vision"):
+            raise ValueError(f"frontend must be None, 'audio' or 'vision', "
+                             f"got {frontend!r}")
+        self.frontend = frontend
         self.device = resolve_device(device)
         dev = self.device
         table = params["embed"]["table"]
@@ -252,7 +267,8 @@ class ServeEngine:
                     self.pool.max_blocks, dev)
         elif dev.type == "cuda" and hasattr(model, "decode_scratch"):
             # a contiguous cache whose decode runs the paged kernel
-            self._attn_scratch = model.decode_scratch(n, dev)
+            self._attn_scratch = model.decode_scratch(n, dev,
+                                                      self.config.max_seq)
         self.last_logits = torch.zeros(
             (db, n, model.cfg.vocab), dtype=table.dtype,
             device=dev) if keep_logits else None
@@ -266,6 +282,11 @@ class ServeEngine:
                 if cuda_graphs else body
 
     # ----------------------------------------------------------- submission
+    def _prefix_len(self, req: Request) -> int:
+        """Cache positions taken before the prompt: a vision prefix's
+        patches (audio frames go to the cross lane, not the positions)."""
+        return prefix_len(self.frontend, req.extra)
+
     def submit(self, request: Request,
                on_token: Callable | None = None, *,
                submit_t: float | None = None) -> int:
@@ -277,25 +298,39 @@ class ServeEngine:
             raise ValueError("empty prompt")
         if request.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if request.extra:
-            raise NotImplementedError(
-                "frontend inputs (Request.extra) are not ported to "
-                "repro_torch yet (ROADMAP.md queue A item 9)")
+        if self.frontend is None and request.extra:
+            raise ValueError(
+                f"request {request.request_id} brings {len(request.extra)} "
+                "frontend inputs (Request.extra), but the engine was built "
+                "without a frontend (pass frontend='vision' or 'audio')")
+        if self.frontend is not None and len(request.extra) != 1:
+            raise ValueError(
+                f"request {request.request_id}: a {self.frontend} engine "
+                f"takes one frontend input, got {len(request.extra)}")
+        prefix = self._prefix_len(request)
         padded = s
         if self.config.prefill_chunk:
             padded = s + (-s) % self.config.prefill_chunk
         # the lane must hold every position written (chunk padding
         # included); the page commitment is only the real footprint
-        lane_depth = max(s + request.max_new_tokens, padded)
+        lane_depth = prefix + max(s + request.max_new_tokens, padded)
         if lane_depth > self.config.max_seq:
             raise ValueError(
                 f"request {request.request_id} needs {lane_depth} cache "
                 f"slots (> max_seq={self.config.max_seq}); raise "
                 f"EngineConfig.max_seq or shorten the request")
+        # learned positions (Whisper's decoder) end at the table; the
+        # reference clamps past it, an index out of range here
+        limit = getattr(self.model.cfg, "max_positions", None)
+        if limit is not None and lane_depth > limit:
+            raise ValueError(
+                f"request {request.request_id} needs {lane_depth} decoder "
+                f"positions (> max_positions={limit} of "
+                f"{self.model.cfg.name}); shorten the request")
         rs = RequestState(
             request, on_token=on_token,
             submit_t=time.perf_counter() if submit_t is None else submit_t,
-            need_tokens=s + request.max_new_tokens)
+            need_tokens=prefix + s + request.max_new_tokens)
         self.scheduler.submit(rs)
         return request.request_id
 
@@ -323,11 +358,13 @@ class ServeEngine:
 
     # ------------------------------------------------------------ admission
     def _bucket_key(self, rs: RequestState):
-        """Prefill bucket: (padded prompt length, needs-refeed)."""
+        """Prefill bucket: (padded prompt length, needs-refeed, frontend
+        extra shapes)."""
         s = len(rs.request.tokens)
         chunk = self.config.prefill_chunk
         padded = s + (-s) % chunk if chunk else s
-        return (padded, padded != s)
+        return (padded, padded != s,
+                tuple(tuple(np.shape(a)) for a in rs.request.extra))
 
     def _note_shapes(self, k: int, padded: int, refeed: bool,
                      batched: bool) -> None:
@@ -363,24 +400,29 @@ class ServeEngine:
         slots = [slot for slot, _ in members]
         reqs = [rs.request for _, rs in members]
         lens = [len(r.tokens) for r in reqs]
-        padded, needs_refeed = self._bucket_key(members[0][1])
+        padded, needs_refeed, _ = self._bucket_key(members[0][1])
         self._note_shapes(len(members), padded, needs_refeed, batched)
         toks = np.zeros((len(reqs), padded), np.int32)
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.tokens
-        depth = padded
+        prefix = self._prefix_len(reqs[0])
+        pos = [prefix + s for s in lens]
+        depth = prefix + padded
         if self._paged:                  # lanes scatter in whole pages
-            depth += (-padded) % self.config.page_size
-            self.pool.extend_many(zip(slots, lens, strict=True))
+            depth += (-depth) % self.config.page_size
+            self.pool.extend_many(zip(slots, pos, strict=True))
         refeed = None
         if needs_refeed:
             refeed = (torch.tensor([r.tokens[-1] for r in reqs],
                                    dtype=torch.int32, device=dev),
-                      torch.tensor([s - 1 for s in lens], dtype=torch.int32,
+                      torch.tensor([p - 1 for p in pos], dtype=torch.int32,
                                    device=dev))
+        # the frontend's inputs, stacked [K, ...] per input
+        extra = [torch.stack([torch.as_tensor(r.extra[j]) for r in reqs])
+                 .to(dev) for j in range(len(reqs[0].extra))]
         logits, lanes = slot_prefill(
             self.model, self.params, torch.tensor(toks, device=dev), depth,
-            refeed)
+            refeed, *extra, frontend=self.frontend)
         self.pool.commit(slots, lanes)
 
         sps = [r.sampling or SamplingParams() for r in reqs]
@@ -405,7 +447,7 @@ class ServeEngine:
         idx = torch.tensor(slots, dtype=torch.long, device=dev)
         st = self._state
         st.token[idx] = tok
-        st.pos[idx] = torch.tensor(lens, **i32)
+        st.pos[idx] = torch.tensor(pos, **i32)
         st.ngen[idx] = 1
         st.active[idx] = active
         st.temp[idx] = temp
@@ -555,7 +597,8 @@ class ServeEngine:
             # back the block's worst-case frontier advance (tables are
             # constant within a block; admission committed it)
             for slot, rs in self.scheduler.running.items():
-                pos = len(rs.request.tokens) + len(rs.tokens) - 1
+                pos = self._prefix_len(rs.request) \
+                    + len(rs.request.tokens) + len(rs.tokens) - 1
                 self.pool.extend(slot, pos + db)
             self._block_tables.copy_(torch.from_numpy(self.pool.block_tables))
         samplers = [(slot, gen) for slot, gen in enumerate(self._gens)
@@ -613,15 +656,16 @@ class ServeEngine:
         return finished
 
     # ----------------------------------------------------------- frontends
-    def generate(self, requests, max_new_tokens: int | None = None, *,
-                 sampling: SamplingParams | None = None,
+    def generate(self, requests, max_new_tokens: int | None = None,
+                 *extra, sampling: SamplingParams | None = None,
                  eos_id: int | None = None):
         """Run requests to completion.  Two forms:
 
         * ``generate(list[Request])`` -> ``list[Completion]`` in request
           order (the engine API);
-        * ``generate(tokens [B, S], max_new_tokens)`` -> int32 tokens
-          ``[B, n]`` on the engine's device (the legacy array form,
+        * ``generate(tokens [B, S], max_new_tokens, *extra)`` -> int32
+          tokens ``[B, n]`` on the engine's device, ``extra`` the
+          frontend's inputs batched ``[B, ...]`` (the legacy array form,
           greedy unless ``sampling`` is given; ``n`` is
           ``max_new_tokens``, default 16, or the longest stream when
           every row stops early at ``eos_id``; a row that stops before
@@ -629,8 +673,8 @@ class ServeEngine:
           0`` gives ``[B, 0]``).
         """
         if not isinstance(requests, (list, tuple)):
-            return self._generate_array(requests, max_new_tokens, sampling,
-                                        eos_id)
+            return self._generate_array(requests, max_new_tokens, extra,
+                                        sampling, eos_id)
         pending = {r.request_id for r in requests}
         done: dict[Any, Completion] = {}
         for r in requests:
@@ -640,7 +684,7 @@ class ServeEngine:
                 done[c.request_id] = c
         return [done[r.request_id] for r in requests]
 
-    def _generate_array(self, tokens, max_new_tokens, sampling,
+    def _generate_array(self, tokens, max_new_tokens, extra, sampling,
                         eos_id) -> torch.Tensor:
         if isinstance(tokens, torch.Tensor):
             tokens = tokens.cpu().numpy()
@@ -653,7 +697,8 @@ class ServeEngine:
         comps = self.generate([
             Request(tokens=[int(t) for t in tokens[i]],
                     max_new_tokens=max_new_tokens,
-                    sampling=sampling or SamplingParams(), eos_id=eos_id)
+                    sampling=sampling or SamplingParams(), eos_id=eos_id,
+                    extra=tuple(a[i] for a in extra))
             for i in range(b)])
         width = max(len(c.tokens) for c in comps)
         out = np.zeros((b, width), np.int32)

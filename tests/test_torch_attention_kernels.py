@@ -231,15 +231,16 @@ def _flash_check(q, k, v, dtype, **kw):
 @pytest.mark.gpu
 class TestAttentionKernelsOnTheCard:
     @pytest.mark.parametrize("hd", HEAD_DIMS)
-    @pytest.mark.parametrize("g", [1, 2, 4, 8])
+    @pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 7, 8])
     def test_flash_bf16_every_width_and_group(self, cuda, hd, g):
         _flash_check(*_flash_inputs(hd + g, 2, 130, 130, 2 * g, 2, hd,
                                     "bfloat16", cuda), "bfloat16")
 
     @pytest.mark.parametrize("hd", HEAD_DIMS)
-    @pytest.mark.parametrize("g", [1, 4, 8])
+    @pytest.mark.parametrize("g", [1, 3, 4, 5, 7, 8])
     def test_flash_f32_every_width_and_group(self, cuda, hd, g):
-        """The 3xTF32 float32 kernel at every width and GQA group."""
+        """The 3xTF32 float32 kernel at every width and GQA group (3, 5
+        and 7: a 16-row tile spans part of a position)."""
         _flash_check(*_flash_inputs(hd + g, 2, 130, 130, 2 * g, 2, hd,
                                     "float32", cuda), "float32")
 
@@ -297,6 +298,53 @@ class TestAttentionKernelsOnTheCard:
         first key falls inside a key tile), ragged sq below it."""
         _flash_check(*_flash_inputs(sq + g, 1, sq, sq, g, 1, 256, dtype,
                                     cuda), dtype, window=2048)
+
+    @pytest.mark.parametrize("sq", [1, 400, 1500])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_flash_whisper_non_causal_over_1500_frames(self, cuda, sq,
+                                                       dtype):
+        """Whisper's encoder (sq = sk = 1500) and cross prefill (a prompt
+        against the frames): 16/16 heads of width 64, non-causal, 1500
+        keys (not a multiple of the key tile)."""
+        q, k, v = _flash_inputs(sq, 2, sq, 1500, 16, 16, 64, dtype, cuda)
+        _flash_check(q, k, v, dtype, causal=False)
+
+    @pytest.mark.parametrize("s", [577, 1088])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_flash_llava_group_7(self, cuda, s, dtype):
+        """llava-next-34b's prefill: 56/8 heads (g 7) of width 128,
+        causal, a 576-patch prefix and up to 512 text tokens."""
+        _flash_check(*_flash_inputs(s, 1, s, s, 56, 8, 128, dtype, cuda),
+                     dtype)
+
+    @pytest.mark.parametrize("depth,kv_len", [(1500, [1500, 1500, 1500]),
+                                              (448, [1, 16, 448])])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_paged_whisper_lane_as_pages(self, cuda, depth, kv_len, dtype):
+        """Whisper's decode: 3 contiguous lanes of ``depth`` keys, 16
+        heads of width 64 (g 1), seen as pages through
+        ``WhisperModel.lane_table`` — the cross lanes of 1500 frames as
+        pages of 4 at ``kv_len = 1500``, self lanes of 448 as pages of
+        16 (lane 0 reading page 0 alone)."""
+        from repro_torch.configs import whisper_medium
+        from repro_torch.models.whisper import WhisperModel
+        model = WhisperModel(whisper_medium.CONFIG)
+        ps = model.lane_page(depth)
+        assert ps == (4 if depth == 1500 else 16)
+        rng = np.random.default_rng(depth)
+        lanes = [rng.standard_normal((3, depth, 16, 64), np.float32)
+                 for _ in "kv"]
+        table = model.lane_table(3, depth, cuda)
+        args = (_to_torch(rng.standard_normal((3, 16, 64), np.float32),
+                          dtype, cuda),
+                *(_to_torch(x, dtype, cuda).view(-1, ps, 16, 64)
+                  for x in lanes), table,
+                torch.tensor(kv_len, dtype=torch.int32, device=cuda))
+        got = paged_attention(*args)
+        torch.cuda.synchronize()
+        _close(got, paged_attention(*args, impl="ref"), _KERNEL_TOL[dtype])
+        if dtype == "bfloat16":
+            _paged_check_f32(got, args)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_paged_griffin_ring_as_pages(self, cuda, dtype):

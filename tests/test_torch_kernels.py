@@ -80,11 +80,16 @@ def _paged_both(case, dtype, device="cpu"):
     return t
 
 
-# GQA groups 1 / 2 / 4 over page sizes 16 / 8 / 4
+# GQA groups 1 / 2 / 4 over page sizes 16 / 8 / 4, then groups 3 / 5 / 7
+# (qwen3's and phi4-mini's 3, qwen2.5-32b's 5, llava's 7: the score loop's
+# rows of 4 with a partial last pass) over pages of 16 / 8 / 4
 PAGED_SWEEP = [
     (3, 4, 2, 32, 8, 4),
     (2, 4, 4, 16, 16, 2),
     (4, 8, 2, 8, 4, 8),
+    (3, 6, 2, 32, 16, 4),
+    (2, 10, 2, 16, 8, 3),
+    (4, 14, 2, 8, 4, 8),
 ]
 
 
@@ -236,6 +241,7 @@ def cuda():
 class TestCudaKernels:
     @pytest.mark.parametrize("slots,nq,nkv,hd,ps,mb", PAGED_SWEEP + [
         (8, 32, 8, 64, 16, 64),        # granite-3-2b decode, 1024 deep
+        (8, 56, 8, 128, 16, 70),       # llava-next-34b decode, g 7
     ])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_paged_kernel_matches_ref(self, cuda, slots, nq, nkv, hd, ps,

@@ -24,10 +24,11 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.configs import granite_3_2b as jax_granite  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
-from repro_torch.configs import get_arch, granite_3_2b  # noqa: E402
+from repro_torch.configs import ARCHS, get_arch, granite_3_2b  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     write_token_to_pages  # noqa: E402
@@ -73,7 +74,12 @@ FULL_PARAMS = {"granite-3-2b": 2_533_531_648,
                "qwen3-1.7b": 1_720_574_976,
                "phi4-mini-3.8b": 3_836_021_760,
                "qwen2.5-32b": 32_763_876_352,
-               "deepseek-v3-671b": 682_636_457_984}
+               "deepseek-v3-671b": 682_636_457_984,
+               "llava-next-34b": 34_388_917_248,
+               "whisper-medium": 792_032_256}
+# the frontends' archs, held whole in tests/test_torch_vision.py and
+# tests/test_torch_whisper.py; here their configs and counts
+FRONTEND_ARCHS = ["llava-next-34b", "whisper-medium"]
 
 
 def _make_pair(name):
@@ -107,7 +113,8 @@ def _tokens(seed, shape, vocab):
 
 # ---------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", *NEW_ARCHS])
+@pytest.mark.parametrize("arch", ["granite-3-2b", *NEW_ARCHS,
+                                  *FRONTEND_ARCHS])
 @pytest.mark.parametrize("name", ["CONFIG", "SMOKE"])
 def test_config_matches_reference(arch, name):
     make = {"CONFIG": "make_model", "SMOKE": "make_smoke"}[name]
@@ -115,14 +122,16 @@ def test_config_matches_reference(arch, name):
     theirs = dataclasses.asdict(getattr(jget_arch(arch), make)().cfg)
     # the reference never reads attn_impl (ROADMAP C3); the port's prefill
     # always runs the flash kernel, so its config has no such field
-    theirs.pop("attn_impl")
+    theirs.pop("attn_impl", None)
     assert ours == theirs
     assert get_arch(arch).family == jget_arch(arch).family
 
 
 def test_unported_archs_and_features_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("llava-next-34b")
+    # every arch of the reference is ported; an unknown id still raises
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("llava-next-35b")
+    assert sorted(ARCHS) == sorted(JARCHS)
 
 
 @pytest.mark.parametrize("arch", sorted(FULL_PARAMS))

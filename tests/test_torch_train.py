@@ -521,8 +521,8 @@ def test_what_is_not_ported_raises():
         sess.fit(3)
     sess = Session(JobConfig(**_job("dreamddp")), model=model, device="cpu")
     assert sess.simulate("churn").trace.n_periods > 0
-    with pytest.raises(KeyError, match="ROADMAP"):
-        Session(JobConfig(arch="llava-next-34b"), device="cpu").model
+    with pytest.raises(KeyError, match="unknown arch"):
+        Session(JobConfig(arch="llava-next-35b"), device="cpu").model
     from repro_torch.serve import ServeEngine
     assert isinstance(sess.serve(), ServeEngine)
     assert Session(JobConfig(algo="hier-2tier"), model=model,
