@@ -258,6 +258,20 @@ code is non-zero):
    paged 60 x ``decode_block`` a replay; the tick's byte bound (every
    weight but the embedding table, plus the live lanes' K/V) and its
    share; no depth cut; then ``llava_profile``.
+32. ``dryrun`` — the production dry run (``launch.dryrun.run_cell``) on
+   meta tensors for ``DRYRUN_CELLS`` (granite-3-2b and mamba2-780m
+   ``train_4k``, qwen3-moe-30b-a3b ``decode_32k`` on the multi-pod mesh,
+   deepseek-v3-671b ``prefill_32k``): per-device FLOPs, memory and wire
+   bytes and the H100 roofline's three terms (data-sheet constants), a
+   line a cell.  Then ``dryrun_card``: granite-3-2b's decode (8 x 4096),
+   prefill (4 x 2048) and train (8 layers as one worker, 4 x 512) cells,
+   built by the port's ``build_*_cell`` on a one-device mesh, traced on
+   meta tensors, materialized on the card from a seeded generator and
+   called: predicted argument bytes against the allocation (the phase
+   fails beyond ``ARG_BYTES_RTOL``), predicted peak against
+   ``max_memory_allocated`` over one call and the roofline time against
+   the call's held median, as ratios; the kernels each call launched
+   (flash in prefill, fused AdamW in train).
 
 Then one ``{"kernels": [...]}`` line (each kernel's cases, the path
 whose run gave its launches — ``serve``, ``train``, ``mamba2_serve``,
@@ -265,7 +279,8 @@ whose run gave its launches — ``serve``, ``train``, ``mamba2_serve``,
 fused AdamW's on the async path too, as
 ``launches_async_train``, the training kernels' in ``mla_reference``'s
 and ``rg_reference``'s fits as ``launches_mla_reference`` and
-``launches_rg_reference``, and ptxas's registers, shared
+``launches_rg_reference``, the dry run's granite cells' as
+``launches_dryrun``, and ptxas's registers, shared
 memory and spills for its source), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -301,12 +316,20 @@ from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
                                            worker_unstack)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_cost  # noqa: E402
 from repro_torch.kernels.fused_adam_sync import fused_adamw  # noqa: E402
+from repro_torch.kernels.fused_adam_sync.ops import adamw_cost  # noqa: E402
 from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
                                             quantize_rows)
+from repro_torch.kernels.int8_quant.ops import int8_cost  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
+from repro_torch.kernels.paged_attention.ops import paged_cost  # noqa: E402
 from repro_torch.kernels.ssd_scan import (ssd_chunk,  # noqa: E402
                                           ssd_chunk_grouped)
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
+from repro_torch.launch import cells as dry_cells  # noqa: E402
+from repro_torch.launch.dryrun import artifact, run_cell  # noqa: E402
+from repro_torch.launch.mesh import MeshSpec  # noqa: E402
 from repro_torch.models.layers import count_params  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models.mamba2 import Mamba2LM  # noqa: E402
@@ -432,13 +455,10 @@ def paged_case(dtype, *, mb, max_len, window=None, slots=8, seed=0,
             rand(n_pages, ps, n_kv, hd),
             torch.tensor(bt, dtype=torch.int32, device=dev),
             torch.tensor(kv_len, dtype=torch.int32, device=dev))
-    es = torch.tensor([], dtype=dtype).element_size()
     # the keys this data needs: each slot's last min(kv_len, window)
-    tokens = int(np.minimum(kv_len, window or max_len).sum())
-    nbytes = (2 * slots * n_q * hd * es          # q in, out
-              + 2 * tokens * n_kv * hd * es      # the K and V these need
-              + bt.size * 4 + slots * 4)
-    flops = 4.0 * n_q * hd * tokens              # QK^T and PV
+    cost = paged_cost(args[0], args[1], args[3], tokens=int(
+        np.minimum(kv_len, window or max_len).sum()))
+    nbytes, flops = cost.nbytes, cost.flops
     shape = (f"slots {slots}, {n_q}/{n_kv} heads, hd {hd}, page 16, "
              f"max_blocks {mb}, kv_len <= {max_len}"
              + (f", window {window}" if window else ""))
@@ -456,11 +476,8 @@ def flash_case(dtype, *, b, s, window=None, seed=1, n_q=32, n_kv=8, hd=64):
             .to("cuda", dtype)
 
     q, k, v = rand(b, s, n_q, hd), rand(b, s, n_kv, hd), rand(b, s, n_kv, hd)
-    es = q.element_size()
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-    rows = np.arange(1, s + 1)                         # keys row r sees
-    pairs = int(np.minimum(rows, window or s).sum())
-    flops = 4.0 * b * n_q * hd * pairs
+    cost = flash_cost(q, k, v, causal=True, window=window)
+    nbytes, flops = cost.nbytes, cost.flops
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = None
     if window:
@@ -896,7 +913,6 @@ def profile_decode(model, params, engine_cfg, requests=None,
 TRAIN_LAYERS, TRAIN_WORKERS, TRAIN_H, TRAIN_B, TRAIN_S = 8, 4, 5, 4, 512
 TRAIN_STEPS = 10
 TRAIN_MODEL = dataclasses.replace(granite_3_2b.CONFIG, n_layers=TRAIN_LAYERS)
-ADAM_FLOPS_PER_ELEMENT = 15        # mul/add/div/sqrt of one AdamW update
 # fused AdamW against its plain version: the same correctly rounded
 # float32 operations, so only powf in the bias corrections may differ in
 # the last place; bfloat16 p may then round to the neighbouring value
@@ -993,8 +1009,8 @@ def adam_case(dtype, shape):
     g, m = rand(), rand(0.1)
     v = rand().abs_().mul_(0.01)
     hyper = torch.tensor([3e-3, 0.9, 0.999, 1e-8, 0.0, 6.0], device="cuda")
-    nbytes = n * (2 * p.element_size() + 5 * 4)  # p, m, v in+out; g in
-    return (p, g, m, v, hyper), nbytes, ADAM_FLOPS_PER_ELEMENT * n
+    cost = adamw_cost(p)                        # p, m, v in+out; g in
+    return (p, g, m, v, hyper), cost.nbytes, cost.flops
 
 
 def fused_adam_library(a: list, hyper: torch.Tensor):
@@ -1093,7 +1109,9 @@ def check_int8(k: int, where: str) -> list[dict]:
                 f"scales {(s != sr).sum().item()}, values "
                 f"{(out != out_r).sum().item()} differ from the plain "
                 "version")
-        n = r * c
+        quant, dequant = ((cost.nbytes, cost.flops) for cost in (
+            int8_cost("quantize_rows", r, c),
+            int8_cost("dequantize_rows", r, c)))
         shape = f"[{r}, {c}] {what}"
         # yardstick only, the port never calls it: one promoting multiply
         # computes float(q) * s, bit for bit the kernel's function
@@ -1104,11 +1122,11 @@ def check_int8(k: int, where: str) -> list[dict]:
         for name, fn, ref, library, reason, nbytes, flops in (
                 ("quantize_rows", lambda: quantize_rows(x, impl="cuda"),
                  lambda: quantize_rows(x, impl="ref"), None,
-                 "none: no single PyTorch call", n * 5 + r * 4, 5 * n),
+                 "none: no single PyTorch call", *quant),
                 ("dequantize_rows",
                  lambda: dequantize_rows(q, s, impl="cuda"),
                  lambda: dequantize_rows(q, s, impl="ref"), torch_mul,
-                 "torch.mul(q, scale)", n * 5 + r * 4, n)):
+                 "torch.mul(q, scale)", *dequant)):
             b_ms, b_by = bound(nbytes, (flops, torch.float32))
             row = {"shape": shape, "dtype": "float32 -> int8" if
                    name == "quantize_rows" else "int8 -> float32",
@@ -2619,12 +2637,9 @@ def ring_case(dtype, *, slots=8, window=RG_WINDOW, max_len=3104, seed=4,
     args = (rand(slots, n_q, hd), rand(slots * window // ps, ps, n_kv, hd),
             rand(slots * window // ps, ps, n_kv, hd), table,
             torch.tensor(fold, dtype=torch.int32, device=dev))
-    es = torch.tensor([], dtype=dtype).element_size()
-    tokens = int(np.minimum(kv_len, window).sum())
-    nbytes = (2 * slots * n_q * hd * es
-              + 2 * tokens * n_kv * hd * es
-              + table.numel() * 4 + slots * 4)
-    flops = 4.0 * n_q * hd * tokens
+    cost = paged_cost(args[0], args[1], table,
+                      tokens=int(np.minimum(kv_len, window).sum()))
+    nbytes, flops = cost.nbytes, cost.flops
     shape = (f"slots {slots}, {n_q}/{n_kv} heads, hd {hd}, rings of "
              f"{window} as pages of {ps}, table {table.shape[1]}, kv_len <= "
              f"{max_len} folded, window {window}")
@@ -2832,9 +2847,8 @@ def flash_xcase(dtype, *, b, sq, sk, causal, seed=1, n_q=16, n_kv=16,
 
     q, k, v = rand(b, sq, n_q, hd), rand(b, sk, n_kv, hd), rand(b, sk, n_kv,
                                                                   hd)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    flops = 4.0 * b * n_q * hd * pairs
+    cost = flash_cost(q, k, v, causal=causal)
+    nbytes, flops = cost.nbytes, cost.flops
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def library():
@@ -2876,11 +2890,8 @@ def lane_case(dtype, *, depth, max_len, lanes=8, seed=5, n_q=16, n_kv=16,
     v_pages = rand(lanes * depth // ps, ps, n_kv, hd)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     args = (q, k_pages, v_pages, table, lens)
-    es = q.element_size()
-    tokens = int(kv_len.sum())
-    nbytes = (2 * lanes * n_q * hd * es + 2 * tokens * n_kv * hd * es
-              + table.numel() * 4 + lanes * 4)
-    flops = 4.0 * n_q * hd * tokens
+    cost = paged_cost(q, k_pages, table, tokens=int(kv_len.sum()))
+    nbytes, flops = cost.nbytes, cost.flops
     # the same lanes, contiguous: [lanes, heads, depth, hd]
     qt = q[:, :, None]
     kt = k_pages.reshape(lanes, depth, n_kv, hd).transpose(1, 2)
@@ -3185,6 +3196,127 @@ def llava_serve() -> tuple[dict, dict]:
     return result, profile
 
 
+# ---------------------------------------------------------------- dry run
+
+# production cells the dry run traces on meta tensors within the time
+# limit (arch, shape, multi_pod)
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", False),
+                ("mamba2-780m", "train_4k", False),
+                ("qwen3-moe-30b-a3b", "decode_32k", True),
+                ("deepseek-v3-671b", "prefill_32k", False))
+# granite-3-2b's cells on one card, built by the dry run's own builders:
+# full width and depth to serve, 8 layers as one worker (large) to train
+CARD_MESH = MeshSpec((1, 1), ("data", "model"))
+CARD_CELLS = (
+    ("decode", granite_3_2b.ARCH, ShapeSpec("card_decode", 4096, 8,
+                                            "decode")),
+    ("prefill", granite_3_2b.ARCH, ShapeSpec("card_prefill", 2048, 4,
+                                             "prefill")),
+    ("train", dataclasses.replace(granite_3_2b.ARCH, large=True,
+                                  make_model=lambda: DecoderLM(TRAIN_MODEL)),
+     ShapeSpec("card_train", 512, 4, "train")))
+ARG_BYTES_RTOL = 0.01        # predicted against allocated argument bytes
+DRYRUN_KERNELS = (flash_attention, paged_attention, ssd_chunk_grouped,
+                  fused_adamw, quantize_rows, dequantize_rows)
+
+
+def dryrun_production(out_dir: Path) -> list[dict]:
+    """``launch.dryrun.run_cell`` on each of ``DRYRUN_CELLS``: per-device
+    FLOPs, memory and wire bytes, the H100 roofline's three terms and the
+    dominant one (reckoned from data-sheet constants, not measured)."""
+    rows = []
+    for arch_id, shape_name, multi_pod in DRYRUN_CELLS:
+        art = run_cell(arch_id, shape_name, multi_pod=multi_pod,
+                       out_dir=str(out_dir), verbose=False)
+        n, r = art["n_devices"], art["roofline_h100"]
+        row = {"phase": "dryrun", "cell": f"{arch_id} {shape_name} "
+                                          f"{art['mesh']}",
+               "flops_per_device": art["cost_analysis"]["flops"] / n,
+               "mem_per_device_gb":
+                   art["memory_analysis"]["total_bytes"] / 1e9,
+               "wire_per_device_gb":
+                   art["collectives"]["total_wire_bytes"] / 1e9,
+               "h100_compute_s": r["compute_s"],
+               "h100_memory_s": r["memory_s"],
+               "h100_collective_s": r["collective_s"],
+               "dominant": r["dominant"],
+               "trace_seconds": art["trace_seconds"]}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def dryrun_card(kind: str, arch, shape) -> dict:
+    """One dry-run cell held against the card: built by the port's
+    ``build_*_cell`` on a one-device mesh and traced on meta tensors,
+    then materialized on the card from a seeded generator and its step
+    called.  Predicted argument bytes against the allocation they took
+    (must agree within ``ARG_BYTES_RTOL``), predicted peak (arguments +
+    temporaries) against ``max_memory_allocated`` over one call, the
+    roofline time against the call's held median; the kernels' launches
+    in that one call (counts set to 0 just before, read just after)."""
+    build = {"decode": dry_cells.build_decode_cell,
+             "prefill": dry_cells.build_prefill_cell,
+             "train": dry_cells.build_train_cell}[kind]
+    cell = build(arch, shape, CARD_MESH, multi_pod=False)
+    counter, out = cell.trace()
+    art = artifact(cell, counter, out, 0.0)
+    mem = art["memory_analysis"]
+    _free()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = cell.materialize(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    arg_bytes = torch.cuda.memory_allocated() - base
+    predicted = mem["argument_size_in_bytes"]
+    torch.cuda.reset_peak_memory_stats()
+    for fn in DRYRUN_KERNELS:
+        fn.launches = 0
+    out = cell.step(*args)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in DRYRUN_KERNELS
+                if fn.launches}
+    peak = torch.cuda.max_memory_allocated() - base
+    result = out[1]["loss"] if kind == "train" else out[0]
+    if not torch.isfinite(result.float()).all():
+        raise RuntimeError(f"dryrun {kind}: non-finite output")
+    ms = median_ms(lambda: cell.step(*args), reps=10, warmup=2)
+    r = art["roofline_h100"]
+    roof_s = max(r["compute_s"], r["memory_s"], r["collective_s"])
+    row = {"phase": "dryrun_card", "kind": kind, "shape": vars(shape),
+           "layers": arch.make_model().cfg.n_layers,
+           "arg_bytes_predicted": predicted, "arg_bytes_allocated":
+               arg_bytes, "arg_ratio": arg_bytes / predicted,
+           "peak_bytes_predicted": predicted + mem["temp_size_in_bytes"],
+           "peak_bytes_measured": peak,
+           "peak_ratio": peak / (predicted + mem["temp_size_in_bytes"]),
+           "flops": art["cost_analysis"]["flops"],
+           "bytes": art["cost_analysis"]["bytes accessed"],
+           "roofline_ms": roof_s * 1e3, "dominant": r["dominant"],
+           "ms": ms, "time_ratio": ms / (roof_s * 1e3),
+           "launches": launches, "meta_kernels": art["kernels"]}
+    emit(row)
+    del args, out, result
+    _free()
+    if abs(arg_bytes - predicted) > ARG_BYTES_RTOL * predicted:
+        raise RuntimeError(f"dryrun {kind}: {arg_bytes} argument bytes "
+                           f"allocated, {predicted} predicted")
+    return row
+
+
+def dryrun(out_dir: Path) -> dict:
+    """The dry-run phase: the production cells, then the card cells."""
+    production = dryrun_production(out_dir)
+    card = {kind: dryrun_card(kind, arch, shape)
+            for kind, arch, shape in CARD_CELLS}
+    if not card["prefill"]["launches"].get("flash_attention") or \
+            not card["train"]["launches"].get("fused_adamw"):
+        raise RuntimeError("dryrun: the card cells' steps did not run "
+                           "flash (prefill) and fused AdamW (train)")
+    return {"production": production, "card": card}
+
+
+
 def ptxas(source: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel compiled
     from ``csrc/<source>.cu``, from ``nvcc -Xptxas -v`` in this run's
@@ -3384,6 +3516,15 @@ def main() -> int:
     emit(result)
     emit(profile)
     rows += kernel_rows(kernels, result["launches"], "llava_serve")
+
+    _free()
+    result = dryrun(ROOT / "build" / "dryrun")
+    for row in rows:            # the dry run's granite cells ran these
+        for kind, card in result["card"].items():
+            if row["path"] in ("serve", "train") \
+                    and row["name"] in card["launches"]:
+                row.setdefault("launches_dryrun", {})[kind] = \
+                    card["launches"][row["name"]]
 
     emit({"kernels": rows})
     print(smi, flush=True)

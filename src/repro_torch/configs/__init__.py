@@ -7,6 +7,8 @@ qwen2.5-32b, the MoE decoders qwen3-moe-30b-a3b and deepseek-v3-671b
 recurrentgemma-9b (the Griffin hybrid; served and trained), and the two
 frontends: llava-next-34b (a vision prefix of patch embeddings) and
 whisper-medium (an encoder-decoder over audio frames), both served.
+The input shapes (:data:`SHAPES`) and :func:`all_cells` are those of the
+production dry run (:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from __future__ import annotations
 from . import (deepseek_v3_671b, granite_3_2b, llava_next_34b, mamba2_780m,
                phi4_mini_3_8b, qwen2_5_32b, qwen3_1_7b, qwen3_moe_30b_a3b,
                recurrentgemma_9b, whisper_medium)
-from .common import ArchSpec
+from .common import ArchSpec, batch_specs
+from .shapes import SHAPES, ShapeSpec
 
 _MODULES = (granite_3_2b, phi4_mini_3_8b, qwen2_5_32b, qwen3_1_7b,
             llava_next_34b, mamba2_780m, recurrentgemma_9b,
@@ -30,4 +33,11 @@ def get_arch(arch_id: str) -> ArchSpec:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "ArchSpec", "get_arch"]
+def all_cells() -> list[tuple[str, str]]:
+    """Every runnable (arch_id, shape_name) pair."""
+    return [(a.arch_id, s.name) for a in ARCHS.values()
+            for s in a.shapes()]
+
+
+__all__ = ["ARCHS", "SHAPES", "ArchSpec", "ShapeSpec", "get_arch",
+           "batch_specs", "all_cells"]

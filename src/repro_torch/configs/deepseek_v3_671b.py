@@ -56,5 +56,8 @@ ARCH = ArchSpec(
     family="moe",
     make_model=lambda: DecoderLM(CONFIG),
     make_smoke=lambda: DecoderLM(SMOKE),
+    large=True,
+    optimizer="adafactor",
+    sub_quadratic=False,
     notes="MLA absorbed decode (57x KV shrink); MTP head = extra unit",
 )

@@ -41,5 +41,8 @@ ARCH = ArchSpec(
     family="dense",
     make_model=lambda: DecoderLM(CONFIG),
     make_smoke=lambda: DecoderLM(SMOKE),
+    large=False,
+    optimizer="adamw",
+    sub_quadratic=False,
     notes="GQA dense baseline",
 )

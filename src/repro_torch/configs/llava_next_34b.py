@@ -43,6 +43,10 @@ ARCH = ArchSpec(
     family="vlm",
     make_model=lambda: DecoderLM(CONFIG),
     make_smoke=lambda: DecoderLM(SMOKE),
+    large=True,
+    optimizer="adafactor",
+    sub_quadratic=False,
     frontend="vision",
+    n_frontend_tokens=576,
     notes="anyres tiling stubbed as precomputed patch embeddings",
 )

@@ -38,5 +38,8 @@ ARCH = ArchSpec(
     family="ssm",
     make_model=lambda: Mamba2LM(CONFIG),
     make_smoke=lambda: Mamba2LM(SMOKE),
+    large=False,
+    optimizer="adamw",
+    sub_quadratic=True,
     notes="attention-free; served on the contiguous backend",
 )

@@ -42,5 +42,8 @@ ARCH = ArchSpec(
     family="dense",
     make_model=lambda: DecoderLM(CONFIG),
     make_smoke=lambda: DecoderLM(SMOKE),
+    large=False,
+    optimizer="adafactor",
+    sub_quadratic=False,
     notes="QKV bias, untied head",
 )

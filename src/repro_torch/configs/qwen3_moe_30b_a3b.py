@@ -47,6 +47,9 @@ ARCH = ArchSpec(
     family="moe",
     make_model=lambda: DecoderLM(CONFIG),
     make_smoke=lambda: DecoderLM(SMOKE),
+    large=True,
+    optimizer="adafactor",
+    sub_quadratic=False,
     notes="dense one-hot dispatch: every expert computes on its capacity "
           "slots, so a decode tick reads every expert",
 )

@@ -47,6 +47,9 @@ ARCH = ArchSpec(
     family="hybrid",
     make_model=lambda: RGLM(CONFIG),
     make_smoke=lambda: RGLM(SMOKE),
+    large=False,
+    optimizer="adafactor",
+    sub_quadratic=True,
     notes="1:2 attn:rec; window attention => constant-size decode state; "
           "served on the contiguous backend",
 )

@@ -42,7 +42,11 @@ ARCH = ArchSpec(
     family="audio",
     make_model=lambda: WhisperModel(CONFIG),
     make_smoke=lambda: WhisperModel(SMOKE),
+    large=False,
+    optimizer="adamw",
+    sub_quadratic=False,
     frontend="audio",
+    n_frontend_tokens=1500,
     notes="enc-dec; cross-attention decode against cached encoder KV; "
           "served on the contiguous backend",
 )

@@ -21,9 +21,10 @@ import torch
 
 from ...device import sm_count
 from .. import _build
+from .._cost import KernelCost, causal_pairs, plain_scope, report
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_cost", "HEAD_DIMS"]
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # head widths the kernel is built for
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -73,6 +74,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def flash_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, window: int | None = None
+               ) -> KernelCost:
+    """One launch's work: Q K^T and P V over the (query, key) pairs it
+    computes, q, k and v read once and the output written once."""
+    b, sq, n_q, hd = q.shape
+    flops = 4.0 * b * n_q * hd * causal_pairs(sq, k.shape[1], causal,
+                                              window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return KernelCost("flash_attention", flops, flops, nbytes)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None,
@@ -81,13 +94,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q ``[b, sq, n_q, hd]``, k/v ``[b, sk, n_kv, hd]`` -> ``[b, sq, n_q,
     hd]`` in q's dtype.  ``causal`` masks ``k_pos > q_pos``; ``window``
-    keeps only ``k_pos > q_pos - window`` (a local window).
+    keeps only ``k_pos > q_pos - window`` (a local window).  On ``meta``
+    tensors it reports :func:`flash_cost` and returns an empty output.
     """
+    if impl is None and q.is_meta:
+        report(flash_cost(q, k, v, causal=causal, window=window))
+        return torch.empty_like(q)
     if impl is None:
         impl = "cuda" if q.is_cuda else "ref"
     if impl == "ref":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+        with plain_scope("flash_attention"):
+            return attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale)
     if impl != "cuda":
         raise ValueError(f"unknown flash_attention impl {impl!r}")
     _check(q, k, v, causal, window)

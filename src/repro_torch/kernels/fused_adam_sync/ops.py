@@ -18,9 +18,12 @@ import ctypes
 import torch
 
 from .. import _build
+from .._cost import KernelCost, plain_scope, report
 from .ref import fused_adamw_ref
 
-__all__ = ["fused_adamw"]
+__all__ = ["fused_adamw", "adamw_cost", "ADAM_FLOPS_PER_ELEMENT"]
+
+ADAM_FLOPS_PER_ELEMENT = 15        # mul/add/div/sqrt of one AdamW update
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict[torch.dtype, ctypes._CFuncPtr] = {}
@@ -66,6 +69,13 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+def adamw_cost(p: torch.Tensor) -> KernelCost:
+    """One launch's work: p, m and v read and written, g read."""
+    n = p.numel()
+    return KernelCost("fused_adamw", 0.0, ADAM_FLOPS_PER_ELEMENT * n,
+                      n * (2 * p.element_size() + 5 * 4))
+
+
 def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                 v: torch.Tensor, hyper: torch.Tensor, *,
                 impl: str | None = None) -> None:
@@ -73,12 +83,17 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
     ``p`` any shape in float32 or bfloat16; ``g``, ``m``, ``v`` the same
     shape in float32; ``hyper`` a ``[6]`` float32 tensor ``[lr, beta1,
-    beta2, eps, weight_decay, step + 1]`` on the same device.
+    beta2, eps, weight_decay, step + 1]`` on the same device.  On
+    ``meta`` tensors it reports :func:`adamw_cost`.
     """
+    if impl is None and p.is_meta:
+        report(adamw_cost(p))
+        return
     if impl is None:
         impl = "cuda" if p.is_cuda else "ref"
     if impl == "ref":
-        fused_adamw_ref(p, g, m, v, hyper)
+        with plain_scope("fused_adamw"):
+            fused_adamw_ref(p, g, m, v, hyper)
         return
     if impl != "cuda":
         raise ValueError(f"unknown fused_adamw impl {impl!r}")

@@ -26,10 +26,12 @@ import ctypes
 import torch
 
 from .. import _build
+from .._cost import KernelCost, plain_scope, report
 from .ref import dequantize_rows_ref, quantize_rows_ref
 
-__all__ = ["quantize_rows", "dequantize_rows", "quantize_geometry",
-           "REGISTER_GEOMETRY", "LOOP_THREADS", "MAX_STAGED"]
+__all__ = ["quantize_rows", "dequantize_rows", "int8_cost",
+           "quantize_geometry", "REGISTER_GEOMETRY", "LOOP_THREADS",
+           "MAX_STAGED"]
 
 # The register kernel's rows: (widest row, threads per row T, float4
 # groups per thread V), each row held as 4V floats in each of T threads.
@@ -102,13 +104,27 @@ def _launch(name: str, a, b, c, rows: int, cols: int, vec: bool,
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def int8_cost(name: str, rows: int, cols: int) -> KernelCost:
+    """One launch of ``quantize_rows`` or ``dequantize_rows`` over ``[rows,
+    cols]``: the float32 and int8 elements and the row scales moved once;
+    5 operations an element to quantize, 1 to dequantize."""
+    n = rows * cols
+    return KernelCost(name, 0.0, (5 if name == "quantize_rows" else 1) * n,
+                      n * 5 + rows * 4)
+
+
 def quantize_rows(x: torch.Tensor, *, impl: str | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[R, C]`` float32 -> (q ``[R, C]`` int8, scale ``[R, 1]``
     float32): ``scale = max|x|/127 + 1e-12``, ``q = clip(round_half_even(
     x / scale), -127, 127)``."""
+    if impl is None and x.is_meta:
+        report(int8_cost("quantize_rows", *x.shape))
+        return (torch.empty(x.shape, dtype=torch.int8, device="meta"),
+                torch.empty(x.shape[0], 1, device="meta"))
     if _impl(impl, x, "quantize_rows") == "ref":
-        return quantize_rows_ref(x)
+        with plain_scope("quantize_rows"):
+            return quantize_rows_ref(x)
     if x.dtype != torch.float32:
         raise TypeError(f"quantize_rows kernel takes float32, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
@@ -130,8 +146,12 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, *,
                     impl: str | None = None) -> torch.Tensor:
     """q ``[R, C]`` int8, scale ``[R, 1]`` float32 -> ``q * scale``
     ``[R, C]`` float32."""
+    if impl is None and q.is_meta:
+        report(int8_cost("dequantize_rows", *q.shape))
+        return torch.empty(q.shape, device="meta")
     if _impl(impl, q, "dequantize_rows") == "ref":
-        return dequantize_rows_ref(q, scale)
+        with plain_scope("dequantize_rows"):
+            return dequantize_rows_ref(q, scale)
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"dequantize_rows kernel takes int8 codes and "
                         f"float32 scales, got {q.dtype}, {scale.dtype}")

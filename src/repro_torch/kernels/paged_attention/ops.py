@@ -28,10 +28,12 @@ import torch
 
 from ...device import sm_count
 from .. import _build
+from .._cost import KernelCost, plain_scope, report
 from ..flash_attention.ops import HEAD_DIMS
 from .ref import paged_attention_ref
 
-__all__ = ["paged_attention", "split_pages", "launch_plan", "launch_scratch"]
+__all__ = ["paged_attention", "paged_cost", "split_pages", "launch_plan",
+           "launch_scratch"]
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict[torch.dtype, ctypes._CFuncPtr] = {}
@@ -160,6 +162,25 @@ def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def paged_cost(q: torch.Tensor, k_pages: torch.Tensor,
+               block_tables: torch.Tensor, *, window: int | None = None,
+               tokens: int | None = None) -> KernelCost:
+    """One launch's work over ``tokens`` attended keys (all slots): Q K^T
+    and P V, q in and out, the K and V those keys need, the block tables
+    and ``kv_len``.  ``tokens=None`` counts every slot at its most: all
+    ``max_blocks`` pages, or the last ``window`` keys."""
+    slots, n_q, hd = q.shape
+    _, page_size, n_kv, _ = k_pages.shape
+    if tokens is None:
+        depth = block_tables.shape[1] * page_size
+        tokens = slots * min(depth, window or depth)
+    es = q.element_size()
+    nbytes = (2 * slots * n_q * hd * es + 2 * tokens * n_kv * hd * es
+              + block_tables.numel() * 4 + slots * 4)
+    flops = 4.0 * n_q * hd * tokens
+    return KernelCost("paged_attention", flops, flops, nbytes)
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     kv_len: torch.Tensor, *, window: int | None = None,
@@ -174,13 +195,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     sits at ``kv_len[b] - 1``; ``window`` keeps the last ``window`` of
     them).  Returns ``[slots, n_q, hd]`` in q's dtype.  ``scratch``, from
     :func:`launch_scratch` for these shapes, replaces the per-stream
-    scratch (the plain version needs none).
+    scratch (the plain version needs none).  On ``meta`` tensors it
+    reports :func:`paged_cost` and returns an empty output.
     """
+    if impl is None and q.is_meta:
+        report(paged_cost(q, k_pages, block_tables, window=window))
+        return torch.empty_like(q)
     if impl is None:
         impl = "cuda" if q.is_cuda else "ref"
     if impl == "ref":
-        return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   kv_len, scale=scale, window=window)
+        with plain_scope("paged_attention"):
+            return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                       kv_len, scale=scale, window=window)
     if impl != "cuda":
         raise ValueError(f"unknown paged_attention impl {impl!r}")
     _check(q, k_pages, v_pages, block_tables, kv_len)

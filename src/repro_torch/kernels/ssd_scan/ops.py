@@ -29,10 +29,11 @@ import ctypes
 import torch
 
 from .. import _build
+from .._cost import KernelCost, plain_scope, report
 from .ref import ssd_chunk_grouped_ref, ssd_chunk_ref
 
-__all__ = ["ssd_chunk", "ssd_chunk_grouped", "smem_bytes",
-           "grouped_launch_args", "chunk_launch_args"]
+__all__ = ["ssd_chunk", "ssd_chunk_grouped", "ssd_grouped_cost",
+           "smem_bytes", "grouped_launch_args", "chunk_launch_args"]
 
 # what the kernel is built for (csrc/ssd_scan.cu)
 MAX_CS, MAX_P, MAX_N = 256, 128, 256
@@ -206,6 +207,27 @@ def _run(x, b, c, da, dims, strides, y_shape):
     return y, states, launched
 
 
+def ssd_grouped_cost(x: torch.Tensor, b: torch.Tensor, chunk: int
+                     ) -> KernelCost:
+    """One launch's work over the lower triangle of each (batch, chunk,
+    head) cell: C B^T once per group cell, the y product and the state
+    product (the matrix products), plus the exp, mask and decay scaling;
+    x, b, c and da read once, y and the states written once."""
+    bsz, lp, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = lp // chunk
+    cells, group_cells = bsz * nc * h, bsz * nc * g
+    tri = chunk * (chunk + 1) // 2
+    cb = group_cells * tri * 2 * n
+    dots = cb + cells * (tri * 2 * p + 2 * chunk * p * n)
+    flops = cb + cells * (tri * (2 + 2 * p) + chunk * (n + 1)
+                          + 2 * chunk * p * n)
+    nbytes = (2 * x.numel() * x.element_size()
+              + 2 * bsz * lp * g * n * b.element_size()
+              + bsz * lp * h * 4 + cells * p * n * 4)
+    return KernelCost("ssd_chunk_grouped", dots, flops, nbytes)
+
+
 def ssd_chunk_grouped(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                       da: torch.Tensor, chunk: int, *,
                       impl: str | None = None
@@ -214,12 +236,20 @@ def ssd_chunk_grouped(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     ``[B, Lp, G, n]`` (``H % G == 0``), da ``[B, Lp, H]``, ``Lp`` a
     multiple of ``chunk`` -> (y_diag ``[B, Lp, H, p]`` in x's dtype,
     states ``[B, Lp // chunk, H, p, n]`` float32).  Operands may be
-    strided views (the last dimension contiguous)."""
+    strided views (the last dimension contiguous).  On ``meta`` tensors
+    it reports :func:`ssd_grouped_cost` and returns empty outputs."""
     _no_grad(x, b, c, da)
+    if impl is None and x.is_meta:
+        report(ssd_grouped_cost(x, b, chunk))
+        bsz, lp, h, p = x.shape
+        return (torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                torch.empty(bsz, lp // chunk, h, p, b.shape[3],
+                            device="meta"))
     if impl is None:
         impl = "cuda" if x.is_cuda else "ref"
     if impl == "ref":
-        return ssd_chunk_grouped_ref(x, b, c, da, chunk)
+        with plain_scope("ssd_chunk_grouped"):
+            return ssd_chunk_grouped_ref(x, b, c, da, chunk)
     if impl != "cuda":
         raise ValueError(f"unknown ssd_chunk_grouped impl {impl!r}")
     if not x.is_cuda:

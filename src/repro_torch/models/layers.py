@@ -17,8 +17,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..tree import tree_map
+
 __all__ = [
-    "normal",
+    "MetaGenerator", "param_shapes", "normal",
+    "dense_spec", "norm_spec", "mlp_spec", "stacked_spec",
+    "widest_dim_specs",
     "dense_init", "dense",
     "norm_init", "rms_norm", "layer_norm",
     "embed_init", "embed",
@@ -44,10 +48,53 @@ _NEG_INF = -1e30
 _DRAW_CHUNK = 1 << 30
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` in ``model.init``: the tree
+    comes out on the ``meta`` device, shapes and dtypes only, with
+    nothing drawn or allocated (the counterpart of
+    ``jax.eval_shape(model.init, key)``).  Every draw of the models goes
+    through :func:`normal`, which makes an empty tensor for it; every
+    other leaf is made on ``device``."""
+
+    device = torch.device("meta")
+
+
+def param_shapes(model) -> Tree:
+    """``model``'s parameter tree as ``meta`` tensors."""
+    return model.init(MetaGenerator())
+
+
+def stacked_spec(spec: Tree) -> Tree:
+    """A stacked group's logical axes: ``layers`` before each leaf's."""
+    if isinstance(spec, dict):
+        return {k: stacked_spec(v) for k, v in spec.items()}
+    return ("layers", *spec)
+
+
+def widest_dim_specs(shapes: Tree, min_dims: int) -> Tree:
+    """Structure-derived logical axes (the reference's rule for the
+    Griffin and Whisper trees): a stacked leaf of at least ``min_dims``
+    dims is ``layers`` first and ``heads`` on its widest later dim
+    (the first of equal widths); a smaller one is ``layers`` then
+    unsharded."""
+    def one(t):
+        nd = t.dim()
+        if nd < min_dims:
+            return ("layers",) + (None,) * (nd - 1) if nd else ()
+        dims: list = [None] * nd
+        dims[0] = "layers"
+        dims[max(range(1, nd), key=lambda i: t.shape[i])] = "heads"
+        return tuple(dims)
+    return tree_map(one, shapes)
+
+
 def normal(gen: torch.Generator, shape, scale: float,
            dtype: torch.dtype) -> torch.Tensor:
-    """``N(0, scale^2)`` drawn in float32 on ``gen``'s device, then cast."""
+    """``N(0, scale^2)`` drawn in float32 on ``gen``'s device, then cast
+    (an empty ``meta`` tensor for a :class:`MetaGenerator`)."""
     shape = tuple(shape)
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if len(shape) > 1 and math.prod(shape) > _DRAW_CHUNK:
         out = torch.empty(shape, dtype=dtype, device=gen.device)
         for i in range(shape[0]):
@@ -73,6 +120,16 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+def dense_spec(in_axis: str | None = None, out_axis: str | None = None, *,
+               bias: bool = False) -> Tree:
+    """Logical axes of :func:`dense_init`'s leaves (the reference's
+    ``dense_init`` spec)."""
+    s = {"w": (in_axis, out_axis)}
+    if bias:
+        s["b"] = (out_axis,)
+    return s
+
+
 def dense(p: Tree, x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"]
     if "b" in p:
@@ -86,6 +143,13 @@ def norm_init(d: int, *, dtype=torch.bfloat16, bias: bool = False,
     if bias:
         p["bias"] = torch.zeros((*stack, d), dtype=dtype, device=device)
     return p
+
+
+def norm_spec(*, bias: bool = False) -> Tree:
+    s = {"scale": (None,)}
+    if bias:
+        s["bias"] = (None,)
+    return s
 
 
 def rms_norm(p: Tree, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -216,6 +280,15 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     p["down"] = dense_init(gen, d_ff, d_model, dtype=dtype,
                            scale=d_ff ** -0.5, stack=stack)
     return p
+
+
+def mlp_spec(kind: str = "swiglu") -> Tree:
+    """Logical axes of :func:`mlp_init`'s leaves: ``ff`` on the hidden
+    dim."""
+    s = {"up": dense_spec(None, "ff"), "down": dense_spec("ff", None)}
+    if kind == "swiglu":
+        s = {"gate": dense_spec(None, "ff"), **s}
+    return s
 
 
 def mlp_apply(p: Tree, x: torch.Tensor, *, kind: str = "swiglu"

@@ -42,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.partial_sync import UnitEntry, UnitLayout
 from ..kernels.ssd_scan import ssd_chunk_grouped
-from .layers import embed, norm_init, normal, rms_norm, softmax_xent
+from .layers import (embed, norm_init, normal, rms_norm, softmax_xent,
+                     stacked_spec)
 
 __all__ = ["Mamba2Config", "Mamba2LM", "ssd_chunked", "ssd_decode_step"]
 
@@ -272,6 +273,25 @@ class Mamba2LM:
             head["out"] = {"w": normal(g, (d, cfg.vocab), d ** -0.5, dt)}
         return {"embed": {"table": normal(g, (cfg.vocab, d), 1.0, dt)},
                 "blocks": blocks, "head": head}
+
+    def param_specs(self) -> Tree:
+        """Logical-axis tree mirroring :meth:`init`'s output (the
+        reference's ``param_specs``): the inner width over ``heads``."""
+        blk = {"ln": {"scale": (None,)},
+               "in_proj": {"w": (None, "heads")},
+               "conv": (None, "heads"),
+               "conv_bias": ("heads",),
+               "a_log": ("heads",),
+               "dt_bias": ("heads",),
+               "d_skip": ("heads",),
+               "out_norm": {"scale": ("heads",)},
+               "out_proj": {"w": ("heads", None)}}
+        specs = {"embed": {"table": ("vocab", None)},
+                 "blocks": stacked_spec(blk),
+                 "head": {"norm": {"scale": (None,)}}}
+        if not self.cfg.tie_embeddings:
+            specs["head"]["out"] = {"w": (None, "vocab")}
+        return specs
 
     # ----------------------------------------------------------------- apply
     def _split_proj(self, zxbcdt: torch.Tensor):

@@ -45,9 +45,9 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.paged_attention import gather_pages, write_token_to_pages
 from .layers import apply_rope, norm_init, normal, rms_norm, rope_freqs
 
-__all__ = ["MLAConfig", "mla_init", "mla_apply_full", "mla_decode",
-           "mla_init_cache", "mla_init_paged_cache", "mla_decode_paged",
-           "mla_param_count", "mla_fwd_flops"]
+__all__ = ["MLAConfig", "mla_init", "mla_specs", "mla_apply_full",
+           "mla_decode", "mla_init_cache", "mla_init_paged_cache",
+           "mla_decode_paged", "mla_param_count", "mla_fwd_flops"]
 
 Tree = Any
 
@@ -91,6 +91,14 @@ def mla_init(gen: torch.Generator, cfg: MLAConfig, d_model: int, *,
         "w_o": normal(gen, (*stack, h * cfg.v_head_dim, d_model),
                       (h * cfg.v_head_dim) ** -0.5, dtype),
     }
+
+
+def mla_specs() -> Tree:
+    """Logical axes of :func:`mla_init`'s leaves (one unstacked layer)."""
+    return {"w_dq": (None, None), "q_norm": {"scale": (None,)},
+            "w_uq": (None, "heads"), "w_dkv": (None, None),
+            "kv_norm": {"scale": (None,)}, "w_uk": (None, "heads"),
+            "w_uv": (None, "heads"), "w_o": ("heads", None)}
 
 
 def _project_q(p, cfg: MLAConfig, x, positions, inv_freq):

@@ -36,8 +36,8 @@ import torch.nn.functional as F
 
 from .layers import dense, normal
 
-__all__ = ["MoEConfig", "moe_init", "moe_apply", "moe_param_count",
-           "moe_active_param_count", "moe_fwd_flops"]
+__all__ = ["MoEConfig", "moe_init", "moe_specs", "moe_apply",
+           "moe_param_count", "moe_active_param_count", "moe_fwd_flops"]
 
 Tree = Any
 
@@ -79,6 +79,20 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, d_model: int, *,
             "down": {"w": normal(gen, (*stack, fs, d_model), s_out, dtype)},
         }
     return p
+
+
+def moe_specs(cfg: MoEConfig) -> Tree:
+    """Logical axes of :func:`moe_init`'s leaves (one unstacked layer):
+    experts over ``expert``, their hidden dim ``ff``."""
+    spec = {"router": {"w": (None, None)},
+            "gate": ("expert", None, "ff"),
+            "up": ("expert", None, "ff"),
+            "down": ("expert", "ff", None)}
+    if cfg.n_shared:
+        spec["shared"] = {"gate": {"w": (None, "ff")},
+                          "up": {"w": (None, "ff")},
+                          "down": {"w": ("ff", None)}}
+    return spec
 
 
 def _route(cfg: MoEConfig, logits: torch.Tensor

@@ -53,7 +53,8 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_attention.ops import launch_scratch
 from .layers import (apply_rope, dense, dense_init, gqa_attention, norm_init,
-                     normal, rms_norm, rope_freqs, softmax_xent)
+                     normal, param_shapes, rms_norm, rope_freqs, softmax_xent,
+                     widest_dim_specs)
 
 __all__ = ["RGConfig", "RGLM", "rg_lru_scan"]
 
@@ -269,6 +270,15 @@ class RGLM:
         params["head"] = {"norm": norm_init(cfg.d_model, dtype=cfg.dtype,
                                             device=g.device)}
         return params
+
+    def param_specs(self) -> Tree:
+        """Logical-axis tree mirroring :meth:`init`'s output (the
+        reference's structure-derived rule: a stacked leaf shards its
+        widest trailing dim over ``heads``)."""
+        specs = widest_dim_specs(param_shapes(self), 2)
+        specs["embed"] = {"table": ("vocab", None)}
+        specs["head"] = {"norm": {"scale": (None,)}}
+        return specs
 
     # -------------------------------------------------------- sub-blocks
     def _mlp(self, p, x):

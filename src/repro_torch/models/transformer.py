@@ -48,14 +48,15 @@ from torch.utils.checkpoint import checkpoint
 from ..core.partial_sync import UnitEntry, UnitLayout
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention, write_token_to_pages
-from .layers import (apply_rope, dense, dense_init, embed, embed_init,
-                     gqa_attention, layer_norm, mlp_apply, mlp_init,
-                     norm_init, rms_norm, rope_freqs, softmax_xent)
+from .layers import (apply_rope, dense, dense_init, dense_spec, embed,
+                     embed_init, gqa_attention, layer_norm, mlp_apply,
+                     mlp_init, mlp_spec, norm_init, norm_spec, rms_norm,
+                     rope_freqs, softmax_xent, stacked_spec)
 from .mla import (MLAConfig, mla_apply_full, mla_decode, mla_decode_paged,
                   mla_fwd_flops, mla_init, mla_init_cache,
-                  mla_init_paged_cache, mla_param_count)
+                  mla_init_paged_cache, mla_param_count, mla_specs)
 from .moe import (MoEConfig, moe_active_param_count, moe_apply, moe_fwd_flops,
-                  moe_init, moe_param_count)
+                  moe_init, moe_param_count, moe_specs)
 
 __all__ = ["LMConfig", "DecoderLM"]
 
@@ -195,6 +196,41 @@ class DecoderLM:
             head["out"] = dense_init(g, d, cfg.vocab, dtype=dt)
         return {"embed": embed_init(g, cfg.vocab, d, dtype=dt), **groups,
                 "head": head}
+
+    def _block_spec(self, kind: str) -> Tree:
+        """Logical axes of one unstacked block (:meth:`_block_init`)."""
+        cfg = self.cfg
+        ln = norm_spec(bias=cfg.norm_kind == "layernorm")
+        if cfg.mla is not None:
+            attn = mla_specs()
+        else:
+            attn = {"wq": dense_spec(None, "heads", bias=cfg.qkv_bias),
+                    "wk": dense_spec(None, "heads", bias=cfg.qkv_bias),
+                    "wv": dense_spec(None, "heads", bias=cfg.qkv_bias),
+                    "wo": dense_spec("heads", None)}
+            if cfg.qk_norm:
+                attn["q_norm"] = norm_spec()
+                attn["k_norm"] = norm_spec()
+        mlp = moe_specs(cfg.moe) if kind == "moe" else mlp_spec(cfg.mlp_kind)
+        return {"ln1": ln, "attn": attn, "ln2": dict(ln), "mlp": mlp}
+
+    def param_specs(self) -> Tree:
+        """Logical-axis tree mirroring :meth:`init`'s output, leaf for
+        leaf (the reference's ``param_specs``): stacked groups get a
+        leading ``layers`` axis."""
+        cfg = self.cfg
+        specs: dict = {"embed": {"table": ("vocab", None)}}
+        for group, kind, _ in cfg.runs():
+            specs[group] = stacked_spec(self._block_spec(kind))
+        if cfg.mtp:
+            specs["mtp"] = {"block": self._block_spec(cfg.runs()[-1][1]),
+                            "proj": {"w": (None, None)},
+                            "norm": {"scale": (None,)}}
+        head: dict = {"norm": norm_spec(bias=cfg.norm_kind == "layernorm")}
+        if not cfg.tie_embeddings:
+            head["out"] = {"w": (None, "vocab")}
+        specs["head"] = head
+        return specs
 
     # ----------------------------------------------------------------- apply
     def _project_qkv(self, p, x, positions):

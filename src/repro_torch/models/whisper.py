@@ -48,7 +48,7 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_attention.ops import launch_scratch, split_pages
 from .layers import (dense, dense_init, gqa_attention, layer_norm, norm_init,
-                     normal, softmax_xent)
+                     normal, param_shapes, softmax_xent, widest_dim_specs)
 
 __all__ = ["WhisperConfig", "WhisperModel"]
 
@@ -156,6 +156,16 @@ class WhisperModel:
                            "mlp": self._mlp_init(g, dec)},
             "head": {"norm": self._ln(g)},
         }
+
+    def param_specs(self) -> Tree:
+        """Logical-axis tree mirroring :meth:`init`'s output (the
+        reference's rule: a stacked matrix shards the larger of its two
+        dims over ``heads``; stacked biases and norms only ``layers``)."""
+        specs = widest_dim_specs(param_shapes(self), 3)
+        specs["embed"] = {"table": ("vocab", None), "pos": (None, None)}
+        specs["bridge"] = {"ln": {"scale": (None,), "bias": (None,)}}
+        specs["head"] = {"norm": {"scale": (None,), "bias": (None,)}}
+        return specs
 
     # ----------------------------------------------------------------- apply
     def _heads(self, t: torch.Tensor) -> torch.Tensor:

@@ -12,12 +12,29 @@ row kernels of :mod:`repro_torch.kernels.int8_quant` for CUDA tensors
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
 from ..kernels.int8_quant import dequantize_rows, quantize_rows
 from ..kernels.int8_quant.ref import int8_scale
+from ..tree import tree_map
 
-__all__ = ["quantize_int8", "dequantize_int8", "compressed_worker_mean"]
+__all__ = ["EFState", "ef_init", "quantize_int8", "dequantize_int8",
+           "compressed_worker_mean"]
+
+
+class EFState(NamedTuple):
+    """Per-leaf error-feedback residuals (float32, worker-stacked)."""
+
+    residual: Any
+
+
+def ef_init(params) -> EFState:
+    """Zero residuals shaped like ``params``, on its leaves' devices."""
+    return EFState(tree_map(
+        lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                              device=x.device), params))
 
 
 def quantize_int8(x: torch.Tensor, *, axis: int = -1,

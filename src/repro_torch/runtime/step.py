@@ -48,12 +48,14 @@ from ..core.partial_sync import (UnitLayout, contiguous_ranges, divergence,
                                  sync_units, tree_worker_mean, worker_stack)
 from ..core.plans import SyncPlan, local_plan
 from ..core.sync_policies import SyncPolicy, resolve_policy
+from ..kernels import _cost
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["TrainState", "StepConfig", "init_train_state",
            "per_worker_grads", "make_train_step", "make_phase_steps",
            "compose_makeup_step", "make_period_step",
-           "prefix_len", "model_prefill", "slot_prefill", "slot_decode",
+           "prefix_len", "model_prefill", "make_prefill_step",
+           "make_decode_step", "slot_prefill", "slot_decode",
            "slot_decode_paged"]
 
 Tree = Any
@@ -122,7 +124,9 @@ def per_worker_grads(model, params: Tree, batch: dict, *,
     ...]`` with ``n_microbatches > 1`` (gradients then accumulate in
     float32, as in the reference).  Returns (losses ``[W]`` float32,
     worker-stacked gradients in the parameter dtype, float32 when
-    accumulated).
+    accumulated).  Traced on ``meta`` tensors under a cost counter, the
+    first worker's first microbatch stands for all of them
+    (:func:`repro_torch.kernels._cost.repeat`).
     """
     leaves = tree_leaves(params)
     n_workers = leaves[0].shape[0]
@@ -130,34 +134,44 @@ def per_worker_grads(model, params: Tree, batch: dict, *,
     grads = tree_map(lambda x: torch.empty(x.shape, dtype=gdtype or x.dtype,
                                            device=x.device), params)
     grad_leaves = tree_leaves(grads)
+    # a dry-run trace on meta tensors: every worker and microbatch runs
+    # the same ops on the same shapes, so one is traced and counted for
+    # all of them
+    traced = _cost.tracing(leaves[0])
+    workers = 1 if traced else n_workers
+    micro = 1 if traced else n_microbatches
     losses = []
-    for k in range(n_workers):
-        pk = tree_map(lambda x: x[k].detach().requires_grad_(), params)
-        pk_leaves = tree_leaves(pk)
-        if n_microbatches == 1:
-            loss = model.loss(pk, {n: v[k] for n, v in batch.items()},
-                              segment_cuts=segment_cuts)
-            for buf, g in zip(grad_leaves, torch.autograd.grad(loss,
-                                                               pk_leaves),
-                              strict=True):
-                buf[k].copy_(g)
-            losses.append(loss.detach().float())
-            continue
-        total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for buf in grad_leaves:
-            buf[k].zero_()
-        for j in range(n_microbatches):
-            loss = model.loss(pk, {n: v[k, j] for n, v in batch.items()},
-                              segment_cuts=segment_cuts)
-            for buf, g in zip(grad_leaves, torch.autograd.grad(loss,
-                                                               pk_leaves),
-                              strict=True):
-                buf[k].add_(g)
-            total = total + loss.detach().float()
-        inv = 1.0 / n_microbatches
-        for buf in grad_leaves:
-            buf[k].mul_(inv)
-        losses.append(total * inv)
+    with _cost.repeat(n_workers * n_microbatches if traced else 1):
+        for k in range(workers):
+            pk = tree_map(lambda x: x[k].detach().requires_grad_(), params)
+            pk_leaves = tree_leaves(pk)
+            if n_microbatches == 1:
+                loss = model.loss(pk, {n: v[k] for n, v in batch.items()},
+                                  segment_cuts=segment_cuts)
+                for buf, g in zip(grad_leaves,
+                                  torch.autograd.grad(loss, pk_leaves),
+                                  strict=True):
+                    buf[k].copy_(g)
+                losses.append(loss.detach().float())
+                continue
+            total = torch.zeros((), dtype=torch.float32,
+                                device=leaves[0].device)
+            for buf in grad_leaves:
+                buf[k].zero_()
+            for j in range(micro):
+                loss = model.loss(pk, {n: v[k, j] for n, v in batch.items()},
+                                  segment_cuts=segment_cuts)
+                for buf, g in zip(grad_leaves,
+                                  torch.autograd.grad(loss, pk_leaves),
+                                  strict=True):
+                    buf[k].add_(g)
+                total = total + loss.detach().float()
+            inv = 1.0 / n_microbatches
+            for buf in grad_leaves:
+                buf[k].mul_(inv)
+            losses.append(total * inv)
+    if traced:
+        losses = losses * n_workers
     return torch.stack(losses), grads
 
 
@@ -294,6 +308,27 @@ def model_prefill(model, params, tokens: torch.Tensor, cache: Tree,
         raise ValueError(f"{len(extra)} frontend inputs for a model "
                          "served without a frontend")
     return model.prefill(params, tokens, cache)
+
+
+def make_prefill_step(model, *, with_frontend: str | None = None):
+    """``prefill(params, tokens, cache[, frames | embeds])`` -> (last
+    logits, cache): the reference's ``make_prefill_step`` over the
+    contiguous cache of ``model.init_cache`` (updated in place).  The
+    frontend's input is the fourth argument: audio frames ``[b,
+    n_frames, d]`` or vision patches ``[b, n, d]``."""
+    def prefill(params, tokens, cache, *extra):
+        return model_prefill(model, params, tokens, cache, *extra,
+                             frontend=with_frontend)
+    return prefill
+
+
+def make_decode_step(model):
+    """``decode(params, cache, token [b, 1], pos [b])`` -> (logits ``[b,
+    1, V]``, cache): the reference's ``make_decode_step`` (the cache
+    updated in place)."""
+    def decode(params, cache, token, pos):
+        return model.decode_step(params, cache, token, pos)
+    return decode
 
 
 def slot_prefill(model, params, tokens: torch.Tensor, depth: int,
