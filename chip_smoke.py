@@ -38,6 +38,18 @@ code is non-zero):
    logits **bitwise** equal, then streams and every ``EngineStats``
    counter equal, and the paged kernel's launches per replay exactly
    layers x ``decode_block``.
+5b. ``sync_check`` — ``repro_torch.lint`` over this tree's
+   ``src/repro_torch`` (any finding outside the committed, empty
+   baseline raises), then the lint held against the card: granite SMOKE
+   on the paged engine with graphs (batched, then serial admission) and
+   two replayed ``compiled`` periods of the smoke ``Session`` under
+   ``torch.cuda.set_sync_debug_mode("warn")``, each synchronizing call's
+   Python stack recorded.  A sync whose own line lies in a ``@hot_path``
+   function and is neither a blessed explicit form (``.cpu()``,
+   ``synchronize()``) nor pragma'd raises; syncs per decode block, per
+   admission tick and per period are reported by kind and line, those
+   reached through unmarked helpers (the static rule's blind spot)
+   counted, not failed.
 6. ``serve``   — granite-3-2b at full width and depth (40 layers, random
    bfloat16 weights from a seeded generator) serves 12 greedy requests
    (prompts of 64-512 tokens, 32 new tokens each, one with an EOS)
@@ -287,18 +299,22 @@ memory and spills for its source), the ``nvidia-smi`` line, and last
 
 from __future__ import annotations
 
+import ast
 import collections
 import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -666,6 +682,226 @@ def graph_check() -> dict:
                 "tokens": runs[0][2]["generated_tokens"]})
             del graph, eager
     return {"phase": "graph_check", "cases": cases}
+
+
+LINT_BASELINE = ROOT / ".repro-torch-lint-baseline.json"
+SYNC_WARNING = "synchronizing CUDA operation"  # set_sync_debug_mode's text
+
+
+def sync_map() -> dict:
+    """Per source file of the port, what the lint knows of its lines:
+    ``hot`` — (first, last line, qualname) of each ``@hot_path``
+    function; ``explicit`` — the lines of every statement that holds a
+    blessed explicit sync (``.cpu()``, ``.to("cpu")``,
+    ``synchronize()``); ``pragma`` — the lines of every statement a
+    HOST-SYNC pragma covers."""
+    from repro_torch.lint.engine import build_context, pragma_map
+    from repro_torch.lint.rules.host_sync import is_explicit_sync
+    out = {}
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        ctx = build_context(path.read_text(), path)
+        pragmas = {line for line, rules in pragma_map(ctx.lines).items()
+                   if rules & {"*", "HOST-SYNC"}}
+        explicit, pragma = set(), set()
+        for node in ast.walk(ctx.tree):
+            if not isinstance(node, ast.stmt) or isinstance(
+                    node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                           ast.ClassDef, ast.If, ast.For, ast.While,
+                           ast.With, ast.Try)):
+                continue
+            span = set(range(node.lineno, node.end_lineno + 1))
+            if any(isinstance(c, ast.Call) and is_explicit_sync(c, ctx)
+                   for c in ast.walk(node)):
+                explicit |= span
+            if node.lineno in pragmas:
+                pragma |= span
+        out[str(path)] = {"hot": [(i.node.lineno, i.node.end_lineno,
+                                   i.qualname) for i in ctx.hot_functions()],
+                          "pragma": pragma, "explicit": explicit}
+    return out
+
+
+def _hot_name(smap: dict, frame) -> str | None:
+    for a, b, qual in smap.get(frame.filename, {}).get("hot", ()):
+        if a <= frame.lineno <= b:
+            return qual
+    return None
+
+
+def classify_sync(smap: dict, stack) -> tuple[str, str, list[str]]:
+    """One synchronizing call's (kind, own line, hot functions on its
+    stack): ``explicit`` (its own line a blessed form), ``pragma`` (a
+    HOST-SYNC pragma'd line of a hot function), ``unaccounted`` (any
+    other line of a hot function: the lint missed it), ``via_helper``
+    (a line of an unmarked helper reached from a hot function: the
+    static rule's blind spot) or ``cold`` (reached from no hot
+    function)."""
+    port = [f for f in stack if f.filename in smap]
+    hot = [q for q in (_hot_name(smap, f) for f in port) if q]
+    if not port:
+        return "cold", "chip_smoke.py", hot
+    own = port[-1]
+    info = smap[own.filename]
+    where = f"{Path(own.filename).relative_to(ROOT)}:{own.lineno}"
+    if own.lineno in info["explicit"]:
+        return "explicit", where, hot
+    if _hot_name(smap, own):
+        kind = "pragma" if own.lineno in info["pragma"] else "unaccounted"
+        return kind, where, hot
+    return ("via_helper" if hot else "cold"), where, hot
+
+
+@contextlib.contextmanager
+def record_syncs(into: list):
+    """Every synchronizing CUDA call inside, as its Python stack at the
+    moment: ``torch.cuda.set_sync_debug_mode("warn")`` warns from the
+    calling thread, so the stack is the caller's.  The mode does not
+    flag ``torch.cuda.synchronize()`` itself, so that call is wrapped
+    and recorded too."""
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING in str(message):
+            into.append(traceback.extract_stack()[:-1])
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    def synchronize(*args, **kwargs):
+        into.append(traceback.extract_stack()[:-1])
+        return device_sync(*args, **kwargs)
+
+    device_sync = torch.cuda.synchronize
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = hook
+        torch.cuda.synchronize = synchronize
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield into
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize = device_sync
+
+
+def _sync_counts(smap: dict, stacks: list, group) -> dict:
+    """Syncs by ``group(hot functions on the stack)``, by kind and by
+    own line."""
+    out: dict = {}
+    for stack in stacks:
+        kind, where, hot = classify_sync(smap, stack)
+        g = out.setdefault(group(hot), {"syncs": 0, "by_kind": {},
+                                        "by_line": {}})
+        g["syncs"] += 1
+        g["by_kind"][kind] = g["by_kind"].get(kind, 0) + 1
+        g["by_line"][f"{where} {kind}"] = \
+            g["by_line"].get(f"{where} {kind}", 0) + 1
+    return out
+
+
+def sync_check() -> dict:
+    """(a) ``repro_torch.lint`` in-process over this tree's
+    ``src/repro_torch``: any finding not in the committed baseline
+    raises.  (b) The lint against the card: granite SMOKE served by the
+    paged engine with graphs on (batched and serial admission: 7
+    requests over 4 slots, every other one sampled, decode block 4) and
+    two ``compiled`` periods of the smoke ``Session`` (W 2, H 5; after a
+    warm fit that captured the period), under
+    ``torch.cuda.set_sync_debug_mode("warn")``.  Each synchronizing call's stack is classified by
+    :func:`classify_sync`; one whose own line lies in a ``@hot_path``
+    function and is neither a blessed explicit form nor pragma'd
+    raises.  Reports syncs per decode block, per admission tick and per
+    period, by kind and by line."""
+    from repro_torch.lint import baseline as lint_baseline
+    from repro_torch.lint import lint_paths
+    t0 = time.perf_counter()
+    # paths as the CLI run from the root reports them (the baseline's)
+    findings = lint_paths([os.path.relpath(ROOT / "src" / "repro_torch")])
+    new, old = lint_baseline.partition(findings,
+                                       lint_baseline.load(LINT_BASELINE))
+    if new:
+        raise RuntimeError("repro_torch.lint: " + "; ".join(
+            f.render() for f in new))
+    smap = sync_map()
+    lint = {"findings": len(new), "baselined": len(old),
+            "files": len(smap), "hot_functions": sum(
+                len(v["hot"]) for v in smap.values()),
+            "seconds": time.perf_counter() - t0}
+
+    def serve_group(hot):
+        if any(q.endswith(("._admit", "._admit_batch")) for q in hot):
+            return "admit"
+        return "decode" if "ServeEngine.step" in hot else "other"
+
+    model = DecoderLM(granite_3_2b.SMOKE)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    serve_out = {}
+    for batched in (True, False):
+        cfg = EngineConfig(max_batch=4, max_seq=32, decode_block=4,
+                           kv_backend="paged", page_size=8,
+                           batched_admission=batched)
+        engine = ServeEngine(model, params, cfg, device="cuda")
+        rng = np.random.default_rng(7)
+        reqs = [Request(tokens=rng.integers(0, model.cfg.vocab,
+                                            n).tolist(),
+                        max_new_tokens=g, request_id=i,
+                        sampling=SamplingParams(temperature=1.5, top_k=20,
+                                                seed=i)
+                        if i % 2 else SamplingParams())
+                for i, (n, g) in enumerate(zip(GRAPH_LENS, GRAPH_BUDGETS,
+                                               strict=True))]
+        stacks: list = []
+        with record_syncs(stacks):
+            comps = engine.generate(reqs)
+        if len(comps) != len(reqs):
+            raise RuntimeError("sync_check: the engine lost a request")
+        blocks = sum(engine.block_stats.blocks.values())
+        ticks = engine.stats.admit_ticks
+        groups = _sync_counts(smap, stacks, serve_group)
+        serve_out["batched" if batched else "serial"] = {
+            "decode_blocks": blocks, "admit_ticks": ticks,
+            "syncs_per_decode_block":
+                groups.get("decode", {}).get("syncs", 0) / blocks,
+            "syncs_per_admit_tick":
+                groups.get("admit", {}).get("syncs", 0) / ticks,
+            "groups": groups}
+        del engine
+    del model, params
+
+    H = 5
+    sess = Session(JobConfig(algo="dreamddp", workers=2, period=H,
+                             period_exec="compiled"), device="cuda")
+    sess.fit(2 * H)                  # period 1 eager, then the capture
+    runner = sess.runner
+    before = (len(runner.period_times),
+              sum(runner.graph_stats.replays.values()))
+    stacks = []
+    with record_syncs(stacks):
+        sess.fit(2 * H)
+    periods = len(runner.period_times) - before[0]
+    replays = sum(runner.graph_stats.replays.values()) - before[1]
+    if periods != 2 or replays != periods:
+        raise RuntimeError(f"sync_check: {periods} periods, {replays} "
+                           "replays; want 2 replayed periods")
+    groups = _sync_counts(
+        smap, stacks,
+        lambda hot: "period" if "Runner._run_fused" in hot else "other")
+    train_out = {"periods": periods, "syncs_per_period":
+                 groups.get("period", {}).get("syncs", 0) / periods,
+                 "groups": groups}
+    del sess
+    _free()
+
+    kinds = collections.Counter()
+    for part in [*serve_out.values(), train_out]:
+        for g in part["groups"].values():
+            kinds.update(g["by_kind"])
+    if kinds["unaccounted"]:
+        raise RuntimeError(
+            "sync_check: a sync in a @hot_path function that the lint "
+            f"does not account for: serve {serve_out}, train {train_out}")
+    return {"phase": "sync_check", "lint": lint, "serve": serve_out,
+            "train": train_out, "by_kind": dict(kinds),
+            "via_helpers": kinds["via_helper"],
+            "unaccounted": kinds["unaccounted"]}
 
 
 SERVE_LENS = (64, 64, 128, 128, 192, 256, 256, 320, 384, 384, 448, 512)
@@ -3399,6 +3635,7 @@ def main() -> int:
     kernels = [check_kernel(k) for k in KERNELS]
     emit(reference_check())
     emit(graph_check())
+    emit(sync_check())
     _free()
     model = DecoderLM(granite_3_2b.CONFIG)      # full width and depth
     params = model.init(torch.Generator("cuda").manual_seed(0))

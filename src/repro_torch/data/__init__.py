@@ -1,5 +1,5 @@
 """Synthetic training data of the port (``repro.data`` counterpart)."""
 
-from .synthetic import MarkovCorpus
+from .synthetic import MarkovCorpus, TeacherImages
 
-__all__ = ["MarkovCorpus"]
+__all__ = ["MarkovCorpus", "TeacherImages"]

@@ -1,10 +1,18 @@
-"""Device selection: the GPU by default, the CPU only when asked for."""
+"""Device selection: the GPU by default, the CPU only when asked for.
+
+Importing this module pins float32 matrix products and convolutions to
+full float32 (no TF32) for the process; the models and the kernels
+import it for that.
+"""
 
 from __future__ import annotations
 
 import torch
 
 __all__ = ["resolve_device", "sm_count"]
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 _SMS: dict[int, int] = {}       # device index -> multiprocessor count
 

@@ -49,8 +49,10 @@ Differences from the reference:
   each worker's state and the global server are built from it.  A
   worker's fresh state is the global model cast into the template's
   dtypes with new optimizer state, so the template itself is not kept;
-* the hot path (``_run_ops`` down to the merges) has no lint marker:
-  the port has no lint yet.
+* the hot path carries the reference's ``@hot_path`` markers
+  (``_run_ops``, ``_apply_op``, ``_period_batch``, ``_drain_metrics``;
+  ``GlobalServer.merge``), which ``python -m repro_torch.lint`` polices:
+  the one host read is the drain's explicit ``.cpu()``.
 
 Times in the history are *virtual* (simulated seconds) — the runner
 never reads a wall clock.
@@ -67,6 +69,7 @@ from ..core.partial_sync import worker_stack
 from ..core.plans import SyncPlan, local_period_plan
 from ..core.sync_policies import resolve_policy
 from ..device import resolve_device
+from ..lint import hot_path
 from ..runtime.pipeline import to_device
 from ..runtime.step import StepConfig, TrainState, make_period_step
 from ..sim.executor import prepare_run
@@ -198,6 +201,7 @@ class AsyncHierRunner:
         return trace
 
     # hot path from here to _period_batch: device work, no host read
+    @hot_path
     def _run_ops(self, ops) -> None:
         every = self.run_cfg.ckpt_every_merges
         for i in range(self.cursor, len(ops)):
@@ -209,6 +213,7 @@ class AsyncHierRunner:
                     and op.version % every == 0):
                 self.save()
 
+    @hot_path
     def _apply_op(self, op) -> None:
         if isinstance(op, PullOp):
             if self.server.version != op.version:
@@ -279,6 +284,7 @@ class AsyncHierRunner:
                 f"merge (version {self.server.version}, staleness "
                 f"{tau}) disagrees with executor op {op}")
 
+    @hot_path
     def _period_batch(self, worker: int, iter0: int) -> Tree:
         """``{name: [H, 1, B, ...]}`` on the device: worker ``worker``'s
         rows of the data's batches for iterations ``iter0 .. iter0+H-1``
@@ -289,12 +295,13 @@ class AsyncHierRunner:
                  for k in per_step[0]}
         return to_device(batch, self.device)
 
+    @hot_path
     def _drain_metrics(self) -> None:
         """One batched host read for everything accumulated this run."""
         if not self._pending_metrics:
             return
         means = torch.stack([m[-1]["loss"].float().mean()
-                             for m in self._pending_metrics]).tolist()
+                             for m in self._pending_metrics]).cpu().tolist()
         for (w, p, it0, t0, t1, _), loss in zip(self._pending_metrics,
                                                 means, strict=True):
             self.history.append({

@@ -41,6 +41,7 @@ from typing import Any, Sequence
 import torch
 
 from ..core.partial_sync import UnitLayout, tree_unit_map
+from ..lint import hot_path
 from ..tree import tree_map
 from .merge import MergeConfig, staleness_scale
 
@@ -66,6 +67,7 @@ class GlobalServer:
 
     # -------------------------------------------------------------- merges
     # hot path: one call per MergeOp; device work only, no host read
+    @hot_path
     def merge(self, delta: Tree, base_version: int,
               unit_ids: Sequence[int]) -> int:
         """Fold one (averaged) delta into the model, in place; returns

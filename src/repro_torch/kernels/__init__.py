@@ -15,3 +15,5 @@ path and the oracle) and ``ops.py`` (the wrapper that launches the CUDA
 kernel from ``csrc/`` for CUDA tensors).  ``_build`` compiles ``csrc/``
 with ``nvcc`` on first use.
 """
+
+from .. import device  # noqa: F401  (no TF32 in the plain versions)

@@ -9,6 +9,9 @@ plain version.  ``fused_adamw.launches`` counts kernel launches.
 
 Both update ``p``, ``m`` and ``v`` in place (the TPU kernel returns new
 arrays; the optimizer's state is the caller's to reuse).
+:func:`fused_adamw_step` and :func:`fused_adamw_tree` take the
+reference's signatures (``repro/kernels/fused_adam_sync/ops.py``) over
+the same wrapper.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import torch
 
 from .. import _build
 from .._cost import KernelCost, plain_scope, report
-from .ref import fused_adamw_ref
+from ...tree import tree_leaves
+from .ref import adamw_hyper, fused_adamw_ref
 
-__all__ = ["fused_adamw", "adamw_cost", "ADAM_FLOPS_PER_ELEMENT"]
+__all__ = ["fused_adamw", "fused_adamw_step", "fused_adamw_tree",
+           "adamw_cost", "ADAM_FLOPS_PER_ELEMENT"]
 
 ADAM_FLOPS_PER_ELEMENT = 15        # mul/add/div/sqrt of one AdamW update
 
@@ -110,3 +115,30 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 
 fused_adamw.launches = 0
+
+
+def fused_adamw_step(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,
+                     eps=1e-8, weight_decay=0.0, block=1024):
+    """The reference's ``fused_adamw_step``: one AdamW step of a tensor
+    quartet through :func:`fused_adamw` (the kernel on CUDA operands,
+    the plain version on the CPU), returning ``(p, m, v)``.
+
+    **In place**: the returned tensors are ``p``, ``m`` and ``v``
+    themselves, updated (the reference returns new arrays; ROADMAP C5).
+    ``g`` may be any float dtype (taken in float32); ``block`` is the
+    Pallas tile and is ignored, the CUDA kernel chooses its own."""
+    del block
+    fused_adamw(p, g.float(), m, v, adamw_hyper(
+        lr, step, beta1=beta1, beta2=beta2, eps=eps,
+        weight_decay=weight_decay, device=p.device))
+    return p, m, v
+
+
+def fused_adamw_tree(params, grads, ms, vs, lr, step, **kw):
+    """:func:`fused_adamw_step` leaf by leaf over parameter trees (nested
+    dicts, leaves in sorted-key order); returns ``(params, ms, vs)``,
+    updated **in place** like the step."""
+    for leaves in zip(*(tree_leaves(t) for t in (params, grads, ms, vs)),
+                      strict=True):
+        fused_adamw_step(*leaves, lr, step, **kw)
+    return params, ms, vs

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_adamw_ref"]
+__all__ = ["fused_adamw_ref", "adamw_hyper", "adamw_ref"]
 
 
 def fused_adamw_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -29,3 +29,28 @@ def fused_adamw_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     p.copy_(p2)
     m.copy_(m2)
     v.copy_(v2)
+
+
+def adamw_hyper(lr, step, *, beta1=0.9, beta2=0.999, eps=1e-8,
+                weight_decay=0.0, device=None) -> torch.Tensor:
+    """The kernels' ``[6]`` float32 operand from the reference's keyword
+    hyperparameters (``lr`` and ``step`` numbers or 0-d tensors):
+    ``[lr, beta1, beta2, eps, weight_decay, step + 1]``."""
+    vals = [torch.as_tensor(x, dtype=torch.float32, device=device)
+            for x in (lr, beta1, beta2, eps, weight_decay, step)]
+    vals[-1] = vals[-1] + 1.0
+    return torch.stack(vals)
+
+
+def adamw_ref(p, g, m, v, *, lr, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.0, step=0):
+    """The reference's ``adamw_ref`` signature over
+    :func:`fused_adamw_ref`: returns new ``(p, m, v)`` (``p`` in its own
+    dtype, ``m`` and ``v`` float32) and leaves its arguments as they
+    are.  ``1 - beta`` is taken in float32 from the ``[6]`` operand, as
+    the kernels take it (ROADMAP C5: 1.3e-5 relative in ``v``)."""
+    p2, m2, v2 = p.clone(), m.float().clone(), v.float().clone()
+    fused_adamw_ref(p2, g, m2, v2, adamw_hyper(
+        lr, step, beta1=beta1, beta2=beta2, eps=eps,
+        weight_decay=weight_decay, device=p.device))
+    return p2, m2, v2

@@ -29,7 +29,8 @@ from .. import _build
 from .._cost import KernelCost, plain_scope, report
 from .ref import dequantize_rows_ref, quantize_rows_ref
 
-__all__ = ["quantize_rows", "dequantize_rows", "int8_cost",
+__all__ = ["quantize_rows", "dequantize_rows", "quantize", "dequantize",
+           "int8_cost",
            "quantize_geometry", "REGISTER_GEOMETRY", "LOOP_THREADS",
            "MAX_STAGED"]
 
@@ -169,6 +170,19 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, *,
     _launch("dequantize_rows", q, scale, out, rows, cols, vec, q.device)
     dequantize_rows.launches += 1
     return out
+
+
+def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``quantize``: :func:`quantize_rows` (the kernel on
+    a CUDA operand, the plain version on the CPU)."""
+    return quantize_rows(x)
+
+
+def dequantize(q: torch.Tensor, s: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The reference's ``dequantize``: :func:`dequantize_rows`, the
+    values in ``dtype``."""
+    return dequantize_rows(q, s).to(dtype)
 
 
 quantize_rows.launches = 0

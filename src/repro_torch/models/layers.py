@@ -17,6 +17,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from .. import device  # noqa: F401  (no TF32 in float32 products)
 from ..tree import tree_map
 
 __all__ = [

@@ -39,6 +39,7 @@ from typing import Any
 
 import torch
 
+from ..lint import hot_path
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["PeriodPrefetcher", "stack_period_batches", "to_device"]
@@ -126,6 +127,7 @@ class PeriodPrefetcher:
         self._thread: threading.Thread | None = None
         self._stream: torch.cuda.Stream | None = None
 
+    @hot_path
     def _build(self, start: int) -> Tree:
         if not self.stacked:
             return [to_device(self.data.batch(r), self.device)
@@ -186,6 +188,7 @@ class PeriodPrefetcher:
                 slot.fail(e)
 
     # ---------------------------------------------------------- interface
+    @hot_path
     def get(self, start: int) -> Tree:
         """The period batch for iterations ``[start, start + H)`` —
         already staged if :meth:`prefetch` predicted this start (the
@@ -210,6 +213,7 @@ class PeriodPrefetcher:
         for slot in self._staged.values():
             slot.ready.wait()
 
+    @hot_path
     def prefetch(self, start: int, *, last: int | None = None) -> None:
         """Stage the periods ``start, start + H, ...`` up to ``depth``
         entries (call right after dispatching the current period, before

@@ -65,6 +65,7 @@ from ..checkpoint import CheckpointManager, reshard_workers
 from ..core.plans import SyncPlan, local_plan
 from ..kernels.fused_adam_sync import fused_adamw
 from ..kernels.int8_quant import dequantize_rows, quantize_rows
+from ..lint import consumes, hot_path
 from ..tree import tree_leaves
 from .pipeline import PeriodPrefetcher, to_device
 from .step import (StepConfig, TrainState, compose_makeup_step,
@@ -269,6 +270,7 @@ class Runner:
         step, _, _ = self.ckpt.restore(state, in_place=True)
         return step
 
+    @hot_path
     def _drain_metrics(self) -> None:
         """Turn device-resident period metrics into history rows with ONE
         device-to-host transfer for every undrained period.  A period's
@@ -282,7 +284,7 @@ class Runner:
                 vals += [v.float() for v in ms.values()]
             else:
                 vals += [v.float().reshape(1) for m in ms for v in m.values()]
-        flat = iter(torch.cat(vals).tolist())
+        flat = iter(torch.cat(vals).cpu().tolist())
         for r0, dt, ms in self._undrained:
             if isinstance(ms, dict):
                 cols = {k: [next(flat) for _ in range(len(v))]
@@ -299,6 +301,7 @@ class Runner:
         self._undrained.clear()
 
     # ------------------------------------------------------------------- run
+    @consumes("state")
     def run(self, state: TrainState, n_steps: int, *,
             start_step: int = 0, fused: bool | None = None,
             inject_failure_at: int | None = None,
@@ -330,6 +333,8 @@ class Runner:
                                inject_straggler_at=inject_straggler_at)
 
     # -------------------------------------------------------- per-step path
+    @hot_path
+    @consumes("state")
     def _run_per_step(self, state: TrainState, n_steps: int, *,
                       start_step: int = 0,
                       inject_failure_at: int | None = None,
@@ -374,7 +379,9 @@ class Runner:
                 self.pending_units.update(self.plan.units_for_phase(phase))
                 self.skipped_syncs += 1
             self._times.append(dt)
-            vals = torch.stack([v.float() for v in metrics.values()]).tolist()
+            # the synchronize above already waited; one explicit read
+            vals = torch.stack([v.float() for v in metrics.values()])
+            vals = vals.cpu().tolist()
             self.history.append({"step": r, "phase": phase, "time": dt,
                                  **dict(zip(metrics, vals, strict=True))})
             if self.ckpt is not None and \
@@ -387,6 +394,8 @@ class Runner:
         return state
 
     # ----------------------------------------------------------- fused path
+    @hot_path
+    @consumes("state")
     def _run_fused(self, state: TrainState, n_steps: int, *,
                    start_step: int = 0,
                    inject_failure_at: int | None = None,

@@ -84,6 +84,7 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_attention.ops import launch_scratch
 from ..kernels.ssd_scan import ssd_chunk_grouped
+from ..lint import hot_path
 from ..runtime.step import (prefix_len, slot_decode, slot_decode_paged,
                             slot_prefill)
 from ..tree import tree_map
@@ -457,11 +458,14 @@ class ServeEngine:
         self._stats.prompt_tokens += sum(lens)
         return tok, active
 
+    @hot_path
     def _admit(self, slot: int, rs: RequestState,
                finished: list[Completion]) -> None:
         """Serial admission: one prefill and one host sync per request."""
         t0 = time.perf_counter()
         tok, active = self._prefill_group([(slot, rs)], batched=False)
+        # repro-lint: disable=HOST-SYNC -- intentional: the first token
+        # must reach the host here; this sync IS the TTFT measurement.
         tok0, alive = torch.stack([tok, active.to(torch.int32)]).tolist()
         now = time.perf_counter()
         rs.first_token_t = now
@@ -470,6 +474,7 @@ class ServeEngine:
         if not alive[0]:
             finished.append(self._finish_slot(slot))
 
+    @hot_path
     def _admit_batch(self, groups, finished: list[Completion]) -> None:
         """Batched admission: one prefill call per bucket and one host
         read for every first token of the tick."""
@@ -480,7 +485,7 @@ class ServeEngine:
             self._stats.prefill_batches += 1
             pending.append((members, tok, active))
         host = torch.cat([torch.stack([tok, act.to(torch.int32)], 1)
-                          for _, tok, act in pending]).tolist()
+                          for _, tok, act in pending]).cpu().tolist()
         now = time.perf_counter()
         self._stats.prefill_time_s += now - t0
         self._stats.admit_ticks += 1
@@ -611,6 +616,7 @@ class ServeEngine:
         self._u.copy_(torch.from_numpy(u))
         return "sampled"
 
+    @hot_path
     @torch.no_grad()
     def step(self) -> list[Completion]:
         """One scheduling tick: admit into free slots, then run one decode
