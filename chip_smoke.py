@@ -111,7 +111,14 @@ code is non-zero):
    contiguous engine on the card (through the SSD kernel) must emit
    exactly the greedy tokens of the plain naive loop on the CPU, same
    weights, and its prefill and decode logits must agree within
-   ``MAMBA_REF_TOL``.
+   ``MAMBA_REF_TOL``.  Then a 4-step 2-worker ``Session.fit`` under
+   ``dreamddp`` and ``dreamddp-int8`` from the same parameters on card
+   and CPU (fingerprints equal, losses within ``TRAIN_REF_TOL``, fused
+   AdamW one launch a leaf a step, the int8 kernels in the int8 fit),
+   and the ``dreamddp`` job for 6 steps (H = 2) with ``period_exec=
+   "compiled"``: **bitwise** the card's pipeline run, one capture, two
+   replays, a restart bitwise (``compiled_reference``).  No SSD launch
+   in the fits: training runs the SSD einsum path.
 13. ``mamba2_serve`` — mamba2-780m at full width and depth (48 layers,
    d_model 1536, random bfloat16 weights from a seeded generator) serves
    12 greedy requests (prompts of 100-1024 tokens, 32 new tokens each,
@@ -120,6 +127,15 @@ code is non-zero):
    The grouped SSD entry's counter is set to 0 just before and read
    just after: 48 launches per prefill call.
 14. ``mamba2_profile`` — its decode blocks alone under ``torch.profiler``.
+14b. ``mamba2_train`` — mamba2-780m at published widths and full depth
+   (48 layers, 780,148,992 bf16 parameters a worker) trained as the
+   train phase trains granite: 4 workers, H = 5, 4 x 512 tokens a
+   worker, 10 steps of ``dreamddp``, ``pipeline`` then ``compiled``;
+   the same numbers as ``train`` (ms/step, tokens/s, MFU from
+   ``Mamba2LM.layer_costs``, peak and state bytes, losses falling,
+   fused AdamW one launch a leaf a step); the SSD chunk kernel is not
+   on this path (no backward) and must not launch; then
+   ``mamba2_train_profile``, one replayed period under the profiler.
 15. ``sim`` — SimNet on the host: ``check_library`` for ``dreamddp``,
    ``plsgd-enp`` and ``flsgd`` and ``check_async_library``, every window
    passing; ``Session.simulate`` of every library scenario in both modes
@@ -270,6 +286,23 @@ code is non-zero):
    paged 60 x ``decode_block`` a replay; the tick's byte bound (every
    weight but the embedding table, plus the live lanes' K/V) and its
    share; no depth cut; then ``llava_profile``.
+31b. ``kernel`` (dense geometries), ``{qwen3,phi4,qwen25}_reference``
+   and ``{qwen3,phi4,qwen25}_serve`` — for each of qwen3-1.7b (16/8
+   heads, ``qk_norm``, tied), phi4-mini-3.8b (24/8, a 200,064-entry tied
+   vocabulary) and qwen2.5-32b (40/8, QKV bias, untied; last, after
+   every earlier phase's memory is freed): the flash kernel (b 2 x s 256,
+   b 1 x s 512, causal) and the paged kernel (8 slots, 34 blocks, kv_len
+   <= 544) at its heads and head width 128, as in phase 3; its SMOKE
+   (float32) on the card against the CPU, as ``moe_reference``
+   (``smoke_direct`` through both kernels, ``smoke_streams`` on paged
+   and contiguous KV); then the config at published widths and full
+   depth, random bf16 weights, ``count_params`` equal to the config's,
+   serving the serve phase's 12 requests as phase 6 (flash one launch
+   a layer a prefill call, paged layers x ``decode_block`` a replay,
+   none eager); the tick's byte bound (every weight but the embedding
+   table, of which a tick reads 8 rows; a tied table read whole as the
+   head; plus the live lanes' K/V) and its share; then its decode
+   blocks under the profiler (``*_profile``).
 32. ``dryrun`` — the production dry run (``launch.dryrun.run_cell``) on
    meta tensors for ``DRYRUN_CELLS`` (granite-3-2b and mamba2-780m
    ``train_4k``, qwen3-moe-30b-a3b ``decode_32k`` on the multi-pod mesh,
@@ -285,16 +318,19 @@ code is non-zero):
    the call's held median, as ratios; the kernels each call launched
    (flash in prefill, fused AdamW in train).
 
-Then one ``{"kernels": [...]}`` line (each kernel's cases, the path
-whose run gave its launches — ``serve``, ``train``, ``mamba2_serve``,
-``moe_serve``, ``rg_serve``, ``whisper_serve``, ``llava_serve`` —
-fused AdamW's on the async path too, as
-``launches_async_train``, the training kernels' in ``mla_reference``'s
-and ``rg_reference``'s fits as ``launches_mla_reference`` and
-``launches_rg_reference``, the dry run's granite cells' as
-``launches_dryrun``, and ptxas's registers, shared
-memory and spills for its source), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+Then a ``wall`` line (the script's seconds from ``main``'s start),
+one ``{"kernels": [...]}`` line (each kernel's cases, the path whose run
+gave its launches — ``serve``, ``train``, ``mamba2_serve``,
+``moe_serve``, ``rg_serve``, ``whisper_serve``, ``llava_serve``,
+``qwen3_serve``, ``phi4_serve``, ``qwen25_serve`` — fused AdamW's on
+the async path too, as ``launches_async_train``, and on Mamba-2 at
+width as ``launches_mamba2_train``, the training kernels' in
+``mla_reference``'s, ``rg_reference``'s and ``mamba2_reference``'s fits
+as ``launches_mla_reference``, ``launches_rg_reference`` and
+``launches_mamba2_reference``, the dry run's granite cells' as
+``launches_dryrun``, and ptxas's registers, shared memory and spills
+for its source), the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -316,6 +352,7 @@ import time
 import traceback
 import warnings
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -326,6 +363,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.api import JobConfig, Session  # noqa: E402
 from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
                                  granite_3_2b, llava_next_34b, mamba2_780m,
+                                 phi4_mini_3_8b, qwen2_5_32b, qwen3_1_7b,
                                  qwen3_moe_30b_a3b, recurrentgemma_9b,
                                  whisper_medium)
 from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
@@ -1019,29 +1057,80 @@ def graph_numbers(engine) -> dict:
             "captured_launches": bs.captured_launches}
 
 
-def serve(model, params, engine_cfg, phase: str = "serve") -> dict:
+def tick_weight_bytes(params, cfg, slots: int) -> int:
+    """The weight bytes a decode tick must read: every weight once, but of
+    an untied embedding table only the ``slots`` rows the tick embeds (a
+    tied table is read whole as the head)."""
+    table = params["embed"]["table"]
+    total = sum(_nbytes(t) for t in tree_leaves(params))
+    if cfg.tie_embeddings:
+        return total
+    return total - _nbytes(table) \
+        + slots * table.shape[1] * table.element_size()
+
+
+def full_params(model, want: int, phase: str):
+    """Random bf16 weights for ``model`` at published widths and full
+    depth, drawn on the card (seed 0); their count must equal the
+    config's and ``want``."""
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n = count_params(params)
+    if not n == model.param_count() == want:
+        raise RuntimeError(f"{phase} parameters: {n}, the config counts "
+                           f"{model.param_count()}, want {want}")
+    return params
+
+
+def serve(model, params, engine_cfg, phase: str = "serve", *,
+          make_requests=serve_requests, frontend: str | None = None,
+          prefix: int = 0) -> dict:
+    """:func:`drive_serve` over a decoder LM (``frontend`` and the
+    ``prefix`` positions it puts before each prompt as the engine has
+    them): flash one launch a layer a prefill call, paged layers x
+    ``decode_block`` a replay and none eager; the pool's numbers and the
+    tick's byte bound (:func:`tick_weight_bytes` plus the live lanes'
+    K/V, ``pos + 1`` keys each, their mean over the run's ticks) over
+    ``HBM_BYTES_PER_S``, and its share of the measured tick."""
     common, engine, launches = drive_serve(
-        model, params, engine_cfg, serve_requests,
+        model, params, engine_cfg, make_requests,
         {"flash_attention": flash_attention,
-         "paged_attention": paged_attention})
-    per_replay = model.cfg.n_layers * engine_cfg.decode_block
+         "paged_attention": paged_attention}, frontend=frontend)
+    cfg = model.cfg
+    per_replay = cfg.n_layers * engine_cfg.decode_block
     held = engine.block_stats.captured_launches
-    if common["graphs_captured"] != 2 or any(
-            h != {"paged_attention": per_replay} for h in held.values()) \
+    if common["graphs_captured"] != 2 \
+            or any(h != {"paged_attention": per_replay}
+                   for h in held.values()) \
             or common["eager_launches"]["paged_attention"] != 0 \
-            or launches["paged_attention"] != \
-            per_replay * common["replays"]:
+            or launches["paged_attention"] != per_replay * common["replays"] \
+            or launches["flash_attention"] != \
+            cfg.n_layers * common["prefill_batches"]:
         raise RuntimeError(
-            f"paged_attention: {launches['paged_attention']} launches "
-            f"({common['eager_launches']['paged_attention']} eager) over "
-            f"{common['replays']} replays of graphs holding {held}; want "
-            f"{per_replay} a replay and none eager")
+            f"{phase} launches {launches} ({common['eager_launches']} "
+            f"eager) over {common['replays']} replays of graphs holding "
+            f"{held} and {common['prefill_batches']} prefill calls; want "
+            f"paged {per_replay} a replay and none eager, flash "
+            f"{cfg.n_layers} a prefill call")
+    per_token = engine.pool.page_bytes() // engine_cfg.page_size
+    positions = decode_positions(engine.take_completed(), prefix)
+    kv_read = per_token * sum(p + 1 for p in positions) / common["ticks_run"]
+    weight_bytes = tick_weight_bytes(params, cfg, engine_cfg.slots)
+    bound_ms = (weight_bytes + kv_read) / HBM_BYTES_PER_S * 1e3
     return {
         "phase": phase, **common,
+        "backend": engine_cfg.kv_backend,
+        "heads": f"{cfg.n_heads}/{cfg.n_kv_heads}", "head_dim": cfg.hd,
+        "max_seq": engine_cfg.max_seq,
         "peak_pages_in_use": engine.pool.peak_pages_in_use,
         "peak_kv_bytes": engine.pool.peak_kv_bytes(),
         "pool_bytes": engine.pool.kv_bytes(),
+        "weight_bytes": sum(_nbytes(t) for t in tree_leaves(params)),
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "kv_bytes_per_token": per_token,
+        "tick_weight_bytes": weight_bytes,
+        "tick_kv_read_bytes_mean": kv_read,
+        "bound_ms_per_tick": bound_ms,
+        "share_of_bound": bound_ms / common["ms_per_decode_tick"],
         "launches": launches,
     }
 
@@ -1175,8 +1264,9 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def train_job(algo: str, period_exec: str = "pipeline") -> JobConfig:
-    return JobConfig(arch="granite-3-2b", algo=algo, workers=TRAIN_WORKERS,
+def train_job(algo: str, period_exec: str = "pipeline",
+              arch: str = "granite-3-2b") -> JobConfig:
+    return JobConfig(arch=arch, algo=algo, workers=TRAIN_WORKERS,
                      period=TRAIN_H, batch_per_worker=TRAIN_B, seq=TRAIN_S,
                      smoke=False, period_exec=period_exec)
 
@@ -1510,15 +1600,20 @@ def _bitwise(a, b, what: str) -> None:
                                f"{(x.float() - y.float()).abs().max().item()}")
 
 
-def compiled_reference(job: JobConfig, card: Session, init: list) -> dict:
-    """The train_reference job with ``period_exec="compiled"`` on the card
-    from the same initial parameters: its final state **bitwise** the
-    pipeline run's (``card``, already held to the CPU run), its losses
-    equal; the first period eager, one capture, the second a replay;
-    fused AdamW 11 launches a step, replays reckoned in.  Then a compiled
-    run with a checkpoint every period and a failure injected at step 7,
-    inside the second period: restored in place (the graph kept), it must
-    end bitwise where the uninterrupted compiled run ends."""
+def compiled_reference(job: JobConfig, card: Session, init: list, *,
+                       steps: int = 10) -> dict:
+    """``job`` with ``period_exec="compiled"`` on the card for ``steps``
+    steps from the same initial parameters ``init`` (worker-stacked
+    leaves): its final state **bitwise** the pipeline run's (``card``,
+    already fitted ``steps`` steps and held to the CPU run), its losses
+    equal; the first period eager, one capture, then a replay a period;
+    fused AdamW one launch a leaf a step (granite SMOKE: 11), replays
+    reckoned in.  Then a compiled run with a checkpoint every period and
+    a failure injected inside the second period (step 7 at H = 5):
+    restored in place (the graph kept), it must end bitwise where the
+    uninterrupted compiled run ends."""
+    H = job.period
+
     def session(**kw):
         sess = Session(job.replace(period_exec="compiled", **kw),
                        device="cuda")
@@ -1528,7 +1623,7 @@ def compiled_reference(job: JobConfig, card: Session, init: list) -> dict:
 
     comp = session()
     _reset_train_counts()
-    comp.fit(10)
+    comp.fit(steps)
     launches, _ = run_launches(comp.runner)
     stats = comp.runner.graph_stats
     _bitwise(card.state, comp.state, f"compiled {job.algo} against pipeline")
@@ -1536,19 +1631,20 @@ def compiled_reference(job: JobConfig, card: Session, init: list) -> dict:
                                              card.history]:
         raise RuntimeError(f"compiled {job.algo}: losses differ from the "
                            "pipeline's")
-    if stats.graphs != 1 or stats.replays[()] != 1 \
-            or launches["fused_adamw"] != 11 * 10:
+    if stats.graphs != 1 or stats.replays[()] != steps // H - 1 \
+            or launches["fused_adamw"] != len(init) * steps:
         raise RuntimeError(f"compiled {job.algo}: {stats.graphs} graphs, "
                            f"{stats.replays} replays, launches {launches}")
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     try:
-        again = session(ckpt_dir=str(ckpt_dir), ckpt_every=5)
+        again = session(ckpt_dir=str(ckpt_dir), ckpt_every=H)
         runner = again.runner
-        state = runner.run(again.state, 10, fused=True, inject_failure_at=7)
+        state = runner.run(again.state, steps, fused=True,
+                           inject_failure_at=H + max(1, H // 2))
         _bitwise(comp.state, state, f"compiled {job.algo} restart")
         if runner.retries != 1 or runner.graph_stats.graphs != 1 \
-                or runner.ckpt.latest_step() != 10:
+                or runner.ckpt.latest_step() != steps:
             raise RuntimeError(f"restart {job.algo}: retries "
                                f"{runner.retries}, graphs "
                                f"{runner.graph_stats.graphs}")
@@ -1559,7 +1655,8 @@ def compiled_reference(job: JobConfig, card: Session, init: list) -> dict:
                    "bitwise_equal_to_uninterrupted": True}
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return {"bitwise_equal_to_pipeline": True, "losses_equal": True,
+    return {"steps": steps, "H": H,
+            "bitwise_equal_to_pipeline": True, "losses_equal": True,
             "graphs": stats.graphs, "replays": stats.replays[()],
             "capture_s": stats.capture_s, "pool_bytes": stats.pool_bytes,
             "launches_per_replay": stats.captured_launches[()],
@@ -1620,18 +1717,36 @@ def train_flops_per_step(model: DecoderLM) -> float:
     return 6.0 * model.param_count() * tokens + attn
 
 
-def train(algo: str, exec_: str, *, keep: bool = False):
-    """One fresh full-width session with ``period_exec=exec_``,
-    TRAIN_STEPS steps, counts around the fit (``compiled``: the first
-    period eager, one capture, then a replay a period; launches reckoned
-    by ``run_launches``).  Per period: its wall time and the span between
+class TrainSpec(NamedTuple):
+    """What :func:`train` trains: the model, its FLOPs a step of every
+    worker, its cuts of the published config, and the phase's name."""
+    model: object
+    flops_fn: Callable
+    reduced: dict
+    phase: str
+
+
+GRANITE_TRAIN = TrainSpec(DecoderLM(TRAIN_MODEL), train_flops_per_step,
+                          {"n_layers": "40 -> 8", "workers": "8 -> 4"},
+                          "train")
+
+
+def train(algo: str, exec_: str, *, keep: bool = False,
+          spec: TrainSpec = GRANITE_TRAIN):
+    """One fresh session with ``period_exec=exec_`` training
+    ``spec.model``, TRAIN_STEPS steps, counts around the fit
+    (``compiled``: the first period eager, one capture, then a replay a
+    period; launches reckoned by ``run_launches``): fused AdamW one
+    launch a leaf a step.  Per period: its wall time and the span between
     the runner's CUDA events around it, whose ratio bounds the device's
     busy share from above (idle gaps inside the span count as busy)."""
-    model = DecoderLM(TRAIN_MODEL)
+    model, phase = spec.model, spec.phase
+    cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
-    sess = Session(train_job(algo, exec_), model=model, device="cuda")
+    sess = Session(train_job(algo, exec_, cfg.name), model=model,
+                   device="cuda")
     plan = sess.plan
-    sess.state                                       # build the state
+    n_leaves = len(tree_leaves(sess.state.params))   # builds the state
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated()
     _reset_train_counts()
@@ -1646,29 +1761,30 @@ def train(algo: str, exec_: str, *, keep: bool = False):
     second = [h["time"] for h in sess.history[TRAIN_H:2 * TRAIN_H]]
     ms = statistics.median(second) * 1e3
     tokens = TRAIN_WORKERS * TRAIN_B * TRAIN_S
-    flops = train_flops_per_step(model)
+    flops = spec.flops_fn(model)
     periods = TRAIN_STEPS // TRAIN_H
-    if counts["fused_adamw"] != 11 * TRAIN_STEPS:
-        raise RuntimeError(f"train {algo} {exec_}: fused_adamw launched "
+    if counts["fused_adamw"] != n_leaves * TRAIN_STEPS:
+        raise RuntimeError(f"{phase} {algo} {exec_}: fused_adamw launched "
                            f"{counts['fused_adamw']} times, want "
-                           f"{11 * TRAIN_STEPS}")
+                           f"{n_leaves * TRAIN_STEPS}")
     if (algo == "dreamddp-int8") != (counts["quantize_rows"] > 0
                                      and counts["dequantize_rows"] > 0):
-        raise RuntimeError(f"train {algo} {exec_}: int8 launches {counts}")
+        raise RuntimeError(f"{phase} {algo} {exec_}: int8 launches "
+                           f"{counts}")
     if (stats.graphs, stats.replays[()]) != (
             (1, periods - 1) if exec_ == "compiled" else (0, 0)):
-        raise RuntimeError(f"train {algo} {exec_}: {stats.graphs} graphs, "
+        raise RuntimeError(f"{phase} {algo} {exec_}: {stats.graphs} graphs, "
                            f"{stats.replays} replays")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise RuntimeError(f"train {algo} {exec_}: losses {losses}")
+        raise RuntimeError(f"{phase} {algo} {exec_}: losses {losses}")
     result = {
-        "phase": "train", "algo": algo, "period_exec": exec_,
-        "arch": TRAIN_MODEL.name,
-        "layers": TRAIN_LAYERS, "d_model": TRAIN_MODEL.d_model,
-        "reduced": {"n_layers": "40 -> 8", "workers": "8 -> 4"},
-        "dtype": TRAIN_MODEL.param_dtype, "workers": TRAIN_WORKERS,
+        "phase": phase, "algo": algo, "period_exec": exec_,
+        "arch": cfg.name,
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "reduced": spec.reduced,
+        "dtype": cfg.param_dtype, "workers": TRAIN_WORKERS,
         "H": TRAIN_H, "batch_per_worker": TRAIN_B, "seq": TRAIN_S,
-        "params_per_replica": model.param_count(),
+        "params_per_replica": model.param_count(), "leaves": n_leaves,
         "plan": {"phase_units": [list(u) for u in plan.phase_units],
                  "units_per_phase": [len(u) for u in plan.phase_units],
                  "fingerprint": plan.fingerprint()},
@@ -1727,7 +1843,8 @@ def _train_class(name: str) -> str:
     return "other elementwise"
 
 
-def train_profile(sess, unprofiled_ms: float) -> dict:
+def train_profile(sess, unprofiled_ms: float,
+                  phase: str = "train_profile") -> dict:
     """One more period of ``sess`` under torch.profiler (in the compiled
     mode one graph replay, whose kernels the profiler sees): device ms
     per step by kernel class; the device's kernels and copies in the
@@ -1769,7 +1886,7 @@ def train_profile(sess, unprofiled_ms: float) -> dict:
     ranges["forward and backward (the rest)"] = device_ms - sum(
         ranges.values())
     return {
-        "phase": "train_profile", "algo": sess.cfg.algo,
+        "phase": phase, "algo": sess.cfg.algo,
         "period_exec": sess.cfg.period_exec, "steps": TRAIN_H,
         "replays_in_profile": sess.runner.graph_stats.replays[()] - replays,
         "wall_ms_per_step": wall * 1e3 / TRAIN_H,
@@ -1803,6 +1920,15 @@ MAMBA_REF_TOL = (1e-4, 1e-4)                       # atol, rtol
 # prefill the kernel's first case times.
 MAMBA_LENS = (100, 100, 250, 333, 480, 480, 512, 640, 777, 900, 1000, 1024)
 MAMBA_ENGINE = EngineConfig(max_batch=8, max_seq=1152, decode_block=8)
+# mamba2_reference's fits (each held to its TRAIN_REF_TOL), and the steps
+# of its compiled run (H = 2: an eager period, a capture, two replays)
+MAMBA_FIT_ALGOS = ("dreamddp", "dreamddp-int8")
+MAMBA_COMPILED_STEPS = 6
+# why no SSD launch is counted on the training path
+MAMBA_TRAIN_SSD = ("not on this path: the training forward runs the SSD "
+                   "einsum path (the chunk kernel has no backward in "
+                   "either package); mamba2_reference and mamba2_serve "
+                   "launch it")
 
 
 def _ssd_work(cells, groups_cells, cs, p, n, bc_dtype):
@@ -1971,10 +2097,65 @@ def mamba2_reference() -> dict:
         want = loop.generate([p], g)[0].tolist()
         if c.tokens != want:
             raise RuntimeError(f"card {c.tokens} != cpu {want}")
-    return {"phase": "mamba2_reference", "requests": len(comps),
-            "tokens": sum(len(c.tokens) for c in comps), "match": True,
-            "max_abs_logit_err": err, "logit_tol": MAMBA_REF_TOL,
-            "ssd_launches": ssd_chunk_grouped.launches}
+    out = {"phase": "mamba2_reference", "requests": len(comps),
+           "tokens": sum(len(c.tokens) for c in comps), "match": True,
+           "max_abs_logit_err": err, "logit_tol": MAMBA_REF_TOL,
+           "ssd_launches": ssd_chunk_grouped.launches}
+    ssd_chunk_grouped.launches = 0
+    out["fit"] = {algo: smoke_fit("mamba2-780m", algo, params, cpu_params,
+                                  "mamba2_reference")
+                  for algo in MAMBA_FIT_ALGOS}
+    out["compiled"] = mamba2_compiled(params)
+    if ssd_chunk_grouped.launches:
+        raise RuntimeError(f"mamba2 training launched the SSD chunk kernel "
+                           f"{ssd_chunk_grouped.launches} times")
+    out["fit_ssd_chunk_fwd"] = MAMBA_TRAIN_SSD
+    return out
+
+
+def mamba2_compiled(params) -> dict:
+    """mamba2 SMOKE's ``dreamddp`` job (2 workers, H = 2) on the card for
+    ``MAMBA_COMPILED_STEPS`` steps from ``params``, the pipeline run
+    first, then :func:`compiled_reference`: the compiled run **bitwise**
+    the pipeline's, one capture, then replays, and a restart bitwise."""
+    job = JobConfig(arch="mamba2-780m", smoke=True, algo="dreamddp",
+                    workers=2, period=2, seq=32, batch_per_worker=2)
+    card = Session(job, params=params, device="cuda")
+    init = [x.clone() for x in tree_leaves(card.state.params)]
+    card.fit(MAMBA_COMPILED_STEPS)
+    return compiled_reference(job, card, init, steps=MAMBA_COMPILED_STEPS)
+
+
+def mamba2_train_flops(model: Mamba2LM) -> float:
+    """One step of every worker: 3 x the forward FLOPs of
+    ``Mamba2LM.layer_costs`` (the projections and the head at 2 N a
+    token, the SSD's chunk and state products; forward and backward);
+    remat's recomputation is not counted."""
+    costs = model.layer_costs(TRAIN_WORKERS * TRAIN_B, TRAIN_S)
+    return 3.0 * sum(f for _, _, f in costs)
+
+
+MAMBA2_TRAIN = TrainSpec(Mamba2LM(mamba2_780m.CONFIG), mamba2_train_flops,
+                         {"workers": "8 -> 4"}, "mamba2_train")
+
+
+def mamba2_train(exec_: str, *, keep: bool = False):
+    """mamba2-780m at published widths and full depth (48 layers, d_model
+    1536, 48 heads x 64, state 128, chunk 128, bf16) through
+    :func:`train`: TRAIN_WORKERS workers, H = TRAIN_H, TRAIN_B x TRAIN_S
+    tokens a worker, TRAIN_STEPS steps of ``dreamddp``; no SSD chunk
+    launch (the training forward is the einsum path)."""
+    ssd_chunk_grouped.launches = 0
+    result, sess = train("dreamddp", exec_, keep=keep, spec=MAMBA2_TRAIN)
+    if ssd_chunk_grouped.launches:
+        raise RuntimeError(f"mamba2_train launched the SSD chunk kernel "
+                           f"{ssd_chunk_grouped.launches} times")
+    cfg = MAMBA2_TRAIN.model.cfg
+    result.update({"heads": cfg.n_heads, "head_dim": cfg.head_dim,
+                   "d_state": cfg.d_state, "chunk": cfg.chunk,
+                   "vocab": cfg.vocab, "depth_cuts": [],
+                   "ssd_chunk_fwd": MAMBA_TRAIN_SSD})
+    return result, sess
 
 
 def mamba_requests(vocab: int, eos_req: int | None = None,
@@ -2648,27 +2829,15 @@ def moe_serve() -> tuple[dict, dict]:
     weights: the serve phase's requests and engine; then its decode
     blocks under the profiler.  Returns (serve result, profile)."""
     model = DecoderLM(qwen3_moe_30b_a3b.CONFIG)
-    params = model.init(torch.Generator("cuda").manual_seed(0))
-    n = count_params(params)
-    if not n == model.param_count() == MOE_PARAMS:
-        raise RuntimeError(f"qwen3-moe parameters: {n}, the config counts "
-                           f"{model.param_count()}, want {MOE_PARAMS}")
+    params = full_params(model, MOE_PARAMS, "moe_serve")
     result = serve(model, params, SERVE_ENGINE, phase="moe_serve")
-    # what a tick must read: every weight but the embedding table (of
-    # which it reads 8 rows), every expert included (the dense dispatch
-    # runs each expert on its capacity slots); the KV read (at most the
-    # pool's 0.43 GB) left out
-    weight_bytes = sum(_nbytes(t) for t in tree_leaves(params)) \
-        - _nbytes(params["embed"]["table"])
+    # every expert is read a tick (the dense dispatch runs each expert on
+    # its capacity slots): they are in serve()'s bound
     expert_bytes = sum(_nbytes(params["blocks"]["mlp"][k])
                        for k in ("gate", "up", "down"))
     result.update({
         "experts": model.cfg.moe.n_experts, "top_k": model.cfg.moe.top_k,
-        "tick_weight_bytes": weight_bytes,
         "tick_expert_bytes": expert_bytes,
-        "bound_ms_per_tick": weight_bytes / HBM_BYTES_PER_S * 1e3,
-        "share_of_bound": weight_bytes / HBM_BYTES_PER_S * 1e3
-        / result["ms_per_decode_tick"],
     })
     profile = profile_decode(model, params, SERVE_ENGINE,
                              phase="moe_profile")
@@ -3370,63 +3539,92 @@ def llava_serve() -> tuple[dict, dict]:
     the profiler.  Returns (serve result, profile)."""
     _free()
     model = DecoderLM(llava_next_34b.CONFIG)
-    params = model.init(torch.Generator("cuda").manual_seed(0))
-    n = count_params(params)
-    if not n == model.param_count() == LLAVA_PARAMS:
-        raise RuntimeError(f"llava parameters: {n}, the config counts "
-                           f"{model.param_count()}, want {LLAVA_PARAMS}")
+    params = full_params(model, LLAVA_PARAMS, "llava_serve")
     cfg = model.cfg
     make = frontend_requests(SERVE_LENS, 9, (LLAVA_PATCHES, cfg.d_model))
-    kernels = {"flash_attention": flash_attention,
-               "paged_attention": paged_attention}
-    common, engine, launches = drive_serve(model, params, LLAVA_ENGINE,
-                                           make, kernels, frontend="vision")
-    per_replay = cfg.n_layers * LLAVA_ENGINE.decode_block
-    held = engine.block_stats.captured_launches
-    if common["graphs_captured"] != 2 \
-            or any(h != {"paged_attention": per_replay}
-                   for h in held.values()) \
-            or common["eager_launches"]["paged_attention"] != 0 \
-            or launches["paged_attention"] != per_replay * common["replays"] \
-            or launches["flash_attention"] != \
-            cfg.n_layers * common["prefill_batches"]:
-        raise RuntimeError(
-            f"llava_serve launches {launches} ({common['eager_launches']} "
-            f"eager) over {common['replays']} replays of graphs holding "
-            f"{held} and {common['prefill_batches']} prefill calls; want "
-            f"paged {per_replay} a replay, flash {cfg.n_layers} a prefill")
-    # what a tick must read: every weight but the embedding table (of
-    # which it reads 8 rows; the untied head is read whole), and the live
-    # lanes' K/V, pos + 1 keys each, their mean over the run's ticks
-    comps = engine.take_completed()
-    weight_bytes = sum(_nbytes(t) for t in tree_leaves(params)) \
-        - _nbytes(params["embed"]["table"])
-    per_token = engine.pool.page_bytes() // LLAVA_ENGINE.page_size
-    positions = decode_positions(comps, LLAVA_PATCHES)
-    kv_read = per_token * sum(p + 1 for p in positions) / common["ticks_run"]
-    bound_ms = (weight_bytes + kv_read) / HBM_BYTES_PER_S * 1e3
-    result = {
-        "phase": "llava_serve", **common, "backend": "paged",
-        "patches": LLAVA_PATCHES,
-        "heads": f"{cfg.n_heads}/{cfg.n_kv_heads}", "head_dim": cfg.hd,
-        "prompt_lens": list(SERVE_LENS), "max_seq": LLAVA_ENGINE.max_seq,
-        "kv_bytes_per_token": per_token,
-        "peak_pages_in_use": engine.pool.peak_pages_in_use,
-        "peak_kv_bytes": engine.pool.peak_kv_bytes(),
-        "pool_bytes": engine.pool.kv_bytes(),
-        "weight_bytes": sum(_nbytes(t) for t in tree_leaves(params)),
-        "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        "depth_cuts": [],
-        "launches": launches,
-        "tick_weight_bytes": weight_bytes,
-        "tick_kv_read_bytes_mean": kv_read,
-        "bound_ms_per_tick": bound_ms,
-        "share_of_bound": bound_ms / common["ms_per_decode_tick"],
-    }
-    del engine
+    result = serve(model, params, LLAVA_ENGINE, "llava_serve",
+                   make_requests=make, frontend="vision",
+                   prefix=LLAVA_PATCHES)
+    result.update({"patches": LLAVA_PATCHES,
+                   "prompt_lens": list(SERVE_LENS), "depth_cuts": []})
     _free()
     profile = profile_decode(model, params, LLAVA_ENGINE, make(cfg.vocab),
                              "llava_profile", frontend="vision")
+    del model, params
+    _free()
+    return result, profile
+
+
+# ---------------------------------------------------------- dense configs
+
+# the dense configs served at published widths and full depth, in the
+# order they run (qwen2.5-32b last: its 65.5 GB of weights want the card
+# to themselves): (phase, config module, parameters, the reference
+# phase's seed)
+DENSE_SERVES = (("qwen3_serve", qwen3_1_7b, 1_720_574_976, 17),
+                ("phi4_serve", phi4_mini_3_8b, 3_836_021_760, 18),
+                ("qwen25_serve", qwen2_5_32b, 32_763_876_352, 19))
+
+
+def dense_cases(cfg) -> dict:
+    """The attention kernels at a dense config's serve geometry
+    (SERVE_ENGINE's max_seq 544 and admission groups of b <= 2, prompts
+    up to 512): its heads (GQA group 2, 3 or 5) at its head width."""
+    heads = {"n_q": cfg.n_heads, "n_kv": cfg.n_kv_heads, "hd": cfg.hd}
+    return {"flash_attention": [{"b": 2, "s": 256, **heads},
+                                {"b": 1, "s": 512, **heads}],
+            "paged_attention": [{"mb": 34, "max_len": 544, **heads}]}
+
+
+def dense_reference(phase: str, module, seed: int) -> dict:
+    """A dense config's SMOKE (float32: qwen3's ``qk_norm``, qwen2.5's QKV
+    bias, phi4's GQA group 3) on the card (flash prefill, paged decode,
+    decode blocks as graph replays) against the CPU (plain versions),
+    same weights: :func:`smoke_direct` through both kernels, within
+    ``MOE_REF_TOL``, and :func:`smoke_streams` on the paged and
+    contiguous backends, equal."""
+    model = DecoderLM(module.SMOKE)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    params = _to(cpu_params, "cuda")
+    f0, p0 = flash_attention.launches, paged_attention.launches
+    out, rng = smoke_direct(model, params, cpu_params, phase, seed)
+    launched = {"flash_attention": flash_attention.launches - f0,
+                "paged_attention": paged_attention.launches - p0}
+    if min(launched.values()) <= 0:
+        raise RuntimeError(f"{phase} did not go through both kernels: "
+                           f"{launched}")
+    cfg = model.cfg
+    out.update({"arch": module.CONFIG.name, "smoke": cfg.name,
+                "heads": f"{cfg.n_heads}/{cfg.n_kv_heads}",
+                "qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
+                "tied": cfg.tie_embeddings, "kernel_launches": launched})
+    out["stream_tokens_equal"] = smoke_streams(model, params, cpu_params,
+                                               phase, rng)
+    del params, cpu_params
+    _free()
+    return out
+
+
+def dense_serve(phase: str, module, n_params: int) -> tuple[dict, dict]:
+    """A dense config at published widths and full depth, random bf16
+    weights drawn on the card after every earlier phase's memory is
+    freed: :func:`serve` with the serve phase's 12 requests and engine
+    (paged, 8 slots, decode block 8, graphs), its launch checks and its
+    tick's byte bound; then its decode blocks under the profiler.
+    Returns (serve result, profile)."""
+    _free()
+    model = DecoderLM(module.CONFIG)
+    params = full_params(model, n_params, phase)
+    cfg = model.cfg
+    result = serve(model, params, SERVE_ENGINE, phase=phase)
+    result.update({
+        "gqa_group": cfg.n_heads // cfg.n_kv_heads,
+        "qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
+        "tied": cfg.tie_embeddings, "vocab": cfg.vocab,
+        "prompt_lens": list(SERVE_LENS), "depth_cuts": [],
+    })
+    profile = profile_decode(model, params, SERVE_ENGINE,
+                             phase=phase.replace("_serve", "_profile"))
     del model, params
     _free()
     return result, profile
@@ -3615,6 +3813,7 @@ def kernel_rows(kernels: list[dict], launches: dict, path: str
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     smi = nvidia_smi()
@@ -3623,10 +3822,10 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
+    b0 = time.perf_counter()
     seconds = _build.build()
     emit({"phase": "build", "seconds": seconds,
-          "wall_s": time.perf_counter() - t0})
+          "wall_s": time.perf_counter() - b0})
 
     tiny = torch.zeros(16, device="cuda")
     emit({"phase": "timing", "floor_ms": median_ms(lambda: tiny.add_(1)),
@@ -3677,7 +3876,13 @@ def main() -> int:
         "dequantize_rows": int8["launches"]["dequantize_rows"]}, "train")
 
     ssd = check_ssd()
-    emit(mamba2_reference())
+    result = mamba2_reference()
+    emit(result)
+    for row in rows:            # the Mamba-2 slice's fits ran the train kernels
+        if row["path"] == "train":
+            row["launches_mamba2_reference"] = {
+                algo: fit["launches"][row["name"]]
+                for algo, fit in result["fit"].items()}
     model = Mamba2LM(mamba2_780m.CONFIG)        # full width and depth
     params = model.init(torch.Generator("cuda").manual_seed(0))
     if count_params(params) != model.param_count():
@@ -3689,6 +3894,18 @@ def main() -> int:
     del model, params
     _free()
     rows += kernel_rows([ssd], result["launches"], "mamba2_serve")
+    for exec_ in ("pipeline", "compiled"):
+        result, sess = mamba2_train(exec_, keep=exec_ == "compiled")
+        emit(result)
+        for row in rows:        # Mamba-2 at width ran fused AdamW
+            if row["name"] == "fused_adamw":
+                row.setdefault("launches_mamba2_train", {})[exec_] = \
+                    result["launches"]["fused_adamw"]
+        if sess is not None:
+            emit(train_profile(sess, result["ms_per_step"],
+                               "mamba2_train_profile"))
+            del sess
+        _free()
 
     emit(sim())
     emit(async_reference())
@@ -3754,6 +3971,16 @@ def main() -> int:
     emit(profile)
     rows += kernel_rows(kernels, result["launches"], "llava_serve")
 
+    for phase, module, n_params, seed in DENSE_SERVES:
+        cases = dense_cases(module.CONFIG)
+        kernels = [check_kernel(k, cases[k]) for k in cases]
+        emit(dense_reference(phase.replace("_serve", "_reference"), module,
+                             seed))
+        result, profile = dense_serve(phase, module, n_params)
+        emit(result)
+        emit(profile)
+        rows += kernel_rows(kernels, result["launches"], phase)
+
     _free()
     result = dryrun(ROOT / "build" / "dryrun")
     for row in rows:            # the dry run's granite cells ran these
@@ -3763,6 +3990,8 @@ def main() -> int:
                 row.setdefault("launches_dryrun", {})[kind] = \
                     card["launches"][row["name"]]
 
+    emit({"phase": "wall", "seconds": time.perf_counter() - t0,
+          "what": "the whole script, from main's start to here"})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -32,8 +32,8 @@ from .._cost import KernelCost, plain_scope, report
 from ..flash_attention.ops import HEAD_DIMS
 from .ref import paged_attention_ref
 
-__all__ = ["paged_attention", "paged_cost", "split_pages", "launch_plan",
-           "launch_scratch"]
+__all__ = ["paged_attention", "paged_attention_fwd", "paged_cost",
+           "split_pages", "launch_plan", "launch_scratch"]
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict[torch.dtype, ctypes._CFuncPtr] = {}
@@ -244,3 +244,26 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        kv_len: torch.Tensor, *, scale: float | None = None,
+                        window: int | None = None, skip_pages: bool = True,
+                        interpret: bool = False) -> torch.Tensor:
+    """The reference's ``paged_attention_fwd``: its argument order and
+    keywords over :func:`paged_attention`.
+
+    ``block_tables`` and ``kv_len`` are taken as int32, as the reference
+    casts them.  ``interpret=True`` runs the plain version (what the
+    reference's Pallas interpreter stands for); otherwise the tensors'
+    device picks, as in :func:`paged_attention`.  ``skip_pages`` does not
+    change the result at either value, as in the reference: the kernel
+    always stops a slot at its last page (``ceil(kv_len / page_size)``),
+    and the plain version masks every key past ``kv_len``.
+    """
+    del skip_pages
+    return paged_attention(q, k_pages, v_pages,
+                           block_tables.to(torch.int32),
+                           kv_len.to(torch.int32), window=window,
+                           scale=scale, impl="ref" if interpret else None)

@@ -79,6 +79,11 @@ class CachePool:
         self._is_free = bytearray([1]) * n_slots
 
     # ------------------------------------------------------------ free list
+    @property
+    def n_free(self) -> int:
+        """Free slots, from the host free list."""
+        return len(self._free)
+
     def alloc(self, need_tokens: int = 0) -> int | None:
         """Pop a free slot id, or None when the arena is full
         (``need_tokens`` matters only to paged pools)."""
@@ -188,6 +193,11 @@ class PagedCachePool(CachePool):
     def n_usable_pages(self) -> int:
         return self.n_pages - 1
 
+    @property
+    def n_free_pages(self) -> int:
+        """Pages on the host free list (page 0 is never on it)."""
+        return len(self._free_pages)
+
     def pages_needed(self, tokens: int) -> int:
         return -(-tokens // self.page_size)
 
@@ -254,10 +264,20 @@ class PagedCachePool(CachePool):
                         self.page_size)
 
     # ----------------------------------------------------------- accounting
+    def block_table_row(self, slot: int) -> torch.Tensor:
+        """``[max_blocks]`` int32 block-table row of ``slot`` on the pool's
+        device, copied from the host table."""
+        return torch.tensor(self.block_tables[slot], device=self.device)
+
     def block_table_rows(self, slots) -> torch.Tensor:
         """``[K, max_blocks]`` int32 device rows for one admission group."""
         rows = self.block_tables[np.asarray(slots, np.int64)]
         return torch.tensor(rows, device=self.device)
+
+    def device_block_tables(self) -> torch.Tensor:
+        """The whole ``[n_slots, max_blocks]`` int32 table on the pool's
+        device, copied from the host table."""
+        return torch.tensor(self.block_tables, device=self.device)
 
     def page_bytes(self) -> int:
         """Device bytes of ONE page across every layer and leaf."""

@@ -20,6 +20,16 @@ On the CPU:
   its own sweep (XLA:CPU divides by 127 as a product with the
   reciprocal).
 
+* the last 14 names (ROADMAP A13′): ``api``'s ``resolve_policy`` and six
+  serving re-exports, ``runtime``'s ``make_prefill_step`` /
+  ``make_decode_step``, the pools' ``n_free`` / ``n_free_pages`` /
+  ``block_table_row`` / ``device_block_tables`` (**equal** to the JAX
+  pool's under the churn of ``tests/test_paged_pool.py``) and
+  ``kernels.paged_attention.paged_attention_fwd`` (against the
+  reference's in interpret mode at both ``skip_pages``, float32
+  ``rtol=atol=2e-5``, the bound the reference's own test holds its kernel
+  to against its oracle).
+
 On the card (``-m gpu``; skipped without CUDA): each alias's kernel path
 against its plain path on the same tensors, with its launches counted.
 """
@@ -184,6 +194,218 @@ def test_int8_aliases_equal_jax(r, c, scale):
     assert (quantize_rows.launches, dequantize_rows.launches) == launches
 
 
+# ----------------------------------------------------- the last 14 names
+
+def _api_name(name):
+    import repro_torch.api as api
+    from repro_torch import serve
+    from repro_torch.core import sync_policies
+    got = getattr(api, name)
+    assert name in api.__all__
+    home = sync_policies if name == "resolve_policy" else serve
+    assert got is getattr(home, name)
+
+
+def _runtime_name(name):
+    import repro_torch.runtime as runtime
+    from repro_torch.configs import get_arch
+    assert name in runtime.__all__
+    model = get_arch("granite-3-2b").make_smoke()
+    params = model.init(torch.Generator().manual_seed(0))
+    tok = torch.tensor([[3, 5, 7, 11]])
+    cache = model.init_cache(1, 8, device="cpu")
+    if name == "make_prefill_step":
+        got, _ = runtime.make_prefill_step(model)(params, tok, cache)
+        want, _ = model.prefill(params, tok, model.init_cache(
+            1, 8, device="cpu"))
+    else:
+        model.prefill(params, tok, cache)
+        step = torch.tensor([[2]])
+        pos = torch.tensor([4], dtype=torch.int32)
+        other = model.init_cache(1, 8, device="cpu")
+        model.prefill(params, tok, other)
+        got, _ = runtime.make_decode_step(model)(params, cache, step, pos)
+        want, _ = model.decode_step(params, other, step, pos)
+    assert torch.equal(got, want)
+
+
+def _pool_name(name):
+    from repro_torch.serve import CachePool
+    pool = _port_pool()
+    attr = getattr(type(pool), name)
+    assert isinstance(attr, property) == name.startswith("n_")
+    if name == "n_free":
+        assert isinstance(CachePool.n_free, property)
+        assert pool.n_free == pool.n_slots
+    elif name == "n_free_pages":
+        assert pool.n_free_pages == pool.n_usable_pages
+    elif name == "block_table_row":
+        slot = pool.alloc(20)
+        pool.extend(slot, 20)
+        row = pool.block_table_row(slot)
+        assert row.dtype == torch.int32 and row.device == pool.device
+        assert row.tolist() == pool.block_tables[slot].tolist()
+    else:
+        tables = pool.device_block_tables()
+        assert tables.dtype == torch.int32
+        assert tuple(tables.shape) == (pool.n_slots, pool.max_blocks)
+
+
+def _kernel_name(name):
+    from repro_torch.kernels import paged_attention as pa
+    assert name in pa.__all__ and callable(getattr(pa, name))
+
+
+NAMES = {
+    **{n: _api_name for n in ("resolve_policy", "ServeEngine",
+                              "EngineConfig", "Request", "SamplingParams",
+                              "Completion", "EngineStats")},
+    "make_prefill_step": _runtime_name, "make_decode_step": _runtime_name,
+    "n_free": _pool_name, "n_free_pages": _pool_name,
+    "block_table_row": _pool_name, "device_block_tables": _pool_name,
+    "paged_attention_fwd": _kernel_name,
+}
+
+
+@pytest.mark.parametrize("name", list(NAMES))
+def test_last_public_names(name):
+    NAMES[name](name)
+
+
+def _port_pool(n_slots=4, max_seq=64, page_size=8, n_pages=None):
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import PagedCachePool
+    model = get_arch("qwen3-1.7b").make_smoke()
+    return PagedCachePool(model, n_slots, max_seq, page_size=page_size,
+                          n_pages=n_pages, device="cpu")
+
+
+def _jax_pool(n_slots=4, max_seq=64, page_size=8, n_pages=None):
+    _jax()
+    from repro.configs import get_arch
+    from repro.serve import PagedCachePool
+    model = get_arch("qwen3-1.7b").make_smoke()
+    return PagedCachePool(model, n_slots, max_seq, page_size=page_size,
+                          n_pages=n_pages)
+
+
+def _same_pools(port, ref):
+    assert port.n_free == ref.n_free
+    assert port.n_free_pages == ref.n_free_pages
+    tables = port.device_block_tables()
+    np.testing.assert_array_equal(tables.numpy(),
+                                  np.asarray(ref.device_block_tables()))
+    for slot in range(port.n_slots):
+        np.testing.assert_array_equal(port.block_table_row(slot).numpy(),
+                                      np.asarray(ref.block_table_row(slot)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_pool_accessors_equal_jax_under_churn(seed):
+    """``tests/test_paged_pool.py::test_alloc_extend_free_churn``'s seeded
+    admit / grow / release sequence on both pools: every accessor equal
+    after every operation."""
+    import random
+    rng = random.Random(seed)
+    port = _port_pool(n_slots=6, max_seq=64, page_size=8, n_pages=25)
+    ref = _jax_pool(n_slots=6, max_seq=64, page_size=8, n_pages=25)
+    live: dict[int, int] = {}
+    grown: dict[int, int] = {}
+    for _ in range(300):
+        op = rng.random()
+        if op < 0.45:
+            need = rng.randint(1, 64)
+            slot = port.alloc(need)
+            assert slot == ref.alloc(need)
+            if slot is not None:
+                live[slot] = need
+                grown[slot] = rng.randint(1, need)
+                port.extend(slot, grown[slot])
+                ref.extend(slot, grown[slot])
+        elif op < 0.75 and live:
+            slot = rng.choice(list(live))
+            grown[slot] = min(live[slot], grown[slot] + rng.randint(0, 16))
+            port.extend(slot, grown[slot])
+            ref.extend(slot, grown[slot])
+        elif live:
+            slot = rng.choice(list(live))
+            port.free(slot)
+            ref.free(slot)
+            del live[slot], grown[slot]
+        _same_pools(port, ref)
+    for slot in list(live):
+        port.free(slot)
+        ref.free(slot)
+    _same_pools(port, ref)
+    assert port.n_free_pages == port.n_usable_pages
+    assert port.n_free == port.n_slots
+
+
+def test_pool_accessors_equal_jax_clamp_and_free():
+    """``tests/test_paged_pool.py::
+    test_extend_clamps_to_commitment_and_free_returns_pages`` on both
+    pools."""
+    port = _port_pool(n_slots=2, max_seq=64, page_size=8, n_pages=17)
+    ref = _jax_pool(n_slots=2, max_seq=64, page_size=8, n_pages=17)
+    for pool in (port, ref):
+        slot = pool.alloc(17)                 # commits 3 pages
+        pool.extend(slot, 64)                 # asks for 8, clamped to 3
+    _same_pools(port, ref)
+    assert (port.block_table_row(slot) > 0).sum().item() == 3
+    before = port.n_free_pages
+    port.free(slot)
+    ref.free(slot)
+    assert port.n_free_pages == before + 3
+    _same_pools(port, ref)
+    with pytest.raises(ValueError):
+        port.free(slot)
+
+
+def _paged_inputs(seed, slots, nq, nkv, hd, ps, mb):
+    """Ragged kv_len (one slot at one token), permuted pages, tables
+    padded with the trash page past each slot's pages."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + slots * mb
+    q = rng.standard_normal((slots, nq, hd)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, ps, nkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, nkv, hd)).astype(np.float32)
+    kv_len = rng.integers(1, mb * ps + 1, size=slots).astype(np.int32)
+    kv_len[0], kv_len[-1] = 1, mb * ps
+    bt = rng.permutation(np.arange(1, n_pages)).reshape(slots, mb)
+    for s in range(slots):
+        bt[s, -(-int(kv_len[s]) // ps):] = 0
+    return q, kp, vp, bt.astype(np.int32), kv_len
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("skip_pages", [True, False])
+@pytest.mark.parametrize("interpret", [True, False])
+def test_paged_attention_fwd_matches_jax(window, skip_pages, interpret):
+    """The alias against the reference's Pallas kernel in interpret mode,
+    float32 ``rtol=atol=2e-5``; both ``skip_pages`` values give the same
+    bits, and the CPU path (``interpret=False`` on CPU tensors) is the
+    plain version, no launch counted."""
+    jax, jnp = _jax()
+    from repro.kernels.paged_attention.kernel import \
+        paged_attention_fwd as jfwd
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_fwd)
+    args = _paged_inputs(31, 3, 4, 2, 16, 8, 4)
+    want = jfwd(*map(jnp.asarray, args), window=window,
+                skip_pages=skip_pages, interpret=True)
+    tq, tk, tv, tbt, tlen = map(torch.from_numpy, args)
+    launches = paged_attention.launches
+    got = paged_attention_fwd(tq, tk, tv, tbt.long(), tlen, window=window,
+                              skip_pages=skip_pages, interpret=interpret)
+    assert paged_attention.launches == launches
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    other = paged_attention_fwd(tq, tk, tv, tbt, tlen, window=window,
+                                skip_pages=not skip_pages,
+                                interpret=interpret)
+    assert torch.equal(got, other)
+
+
 # ---------------------------------------------------- on the card (gpu)
 
 @pytest.fixture
@@ -236,6 +458,20 @@ class TestCudaAliases:
         assert torch.equal(q, qr) and torch.equal(s, sr)
         assert torch.equal(d, dequantize_rows(qr, sr, impl="ref")
                            .to(torch.bfloat16))
+
+    @pytest.mark.parametrize("skip_pages", [True, False])
+    def test_paged_attention_fwd_kernel_vs_plain(self, cuda, skip_pages):
+        from repro_torch.kernels.paged_attention import (
+            paged_attention, paged_attention_fwd)
+        args = [torch.from_numpy(a).to(cuda) for a in
+                _paged_inputs(31, 3, 4, 2, 16, 8, 4)]
+        before = paged_attention.launches
+        got = paged_attention_fwd(*args, skip_pages=skip_pages)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        want = paged_attention_fwd(*args, interpret=True)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5,
+                                   atol=2e-5)
 
     def test_teacher_images_on_the_card(self, cuda):
         d = TeacherImages(**TEACHER, device=cuda)
