@@ -1737,9 +1737,10 @@ def train(algo: str, exec_: str, *, keep: bool = False,
     ``spec.model``, TRAIN_STEPS steps, counts around the fit
     (``compiled``: the first period eager, one capture, then a replay a
     period; launches reckoned by ``run_launches``): fused AdamW one
-    launch a leaf a step.  Per period: its wall time and the span between
-    the runner's CUDA events around it, whose ratio bounds the device's
-    busy share from above (idle gaps inside the span count as busy)."""
+    launch a leaf a step.  Per period: its wall time and the span from its
+    first phase mark to its last (the history rows' ``grads_s`` +
+    ``optimizer_s`` + ``sync_s``), whose ratio bounds the device's busy
+    share from above (idle gaps inside the span count as busy)."""
     model, phase = spec.model, spec.phase
     cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
@@ -1763,6 +1764,10 @@ def train(algo: str, exec_: str, *, keep: bool = False,
     tokens = TRAIN_WORKERS * TRAIN_B * TRAIN_S
     flops = spec.flops_fn(model)
     periods = TRAIN_STEPS // TRAIN_H
+    period_marked = [
+        sum(h["grads_s"] + h["optimizer_s"] + h["sync_s"]
+            for h in sess.history[p * TRAIN_H:(p + 1) * TRAIN_H])
+        for p in range(periods)]
     if counts["fused_adamw"] != n_leaves * TRAIN_STEPS:
         raise RuntimeError(f"{phase} {algo} {exec_}: fused_adamw launched "
                            f"{counts['fused_adamw']} times, want "
@@ -1798,9 +1803,9 @@ def train(algo: str, exec_: str, *, keep: bool = False,
         "ms_per_step_both_periods":
             statistics.fmean(h["time"] for h in sess.history) * 1e3,
         "period_wall_ms": [t * 1e3 for t in runner.period_times],
-        "period_event_ms": [t * 1e3 for t in runner.period_event_times],
+        "period_event_ms": [t * 1e3 for t in period_marked],
         "event_span_share": [e / t for e, t in zip(
-            runner.period_event_times, runner.period_times, strict=True)],
+            period_marked, runner.period_times, strict=True)],
         "tokens_per_s": tokens / (ms / 1e3),
         "flops_per_step": flops,
         "mfu": flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16],

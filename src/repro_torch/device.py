@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "sm_count"]
+__all__ = ["resolve_device", "sm_count", "upload", "upload_into"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -41,3 +41,33 @@ def sm_count(device: torch.device) -> int:
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
         _SMS[idx] = sms
     return sms
+
+
+def upload(data, device: torch.device, dtype: torch.dtype | None = None
+           ) -> torch.Tensor:
+    """``data`` (a list, an array or a host tensor) on ``device``, copied
+    without the host waiting for the device.
+
+    ``torch.tensor(data, device=cuda)`` and ``host.to(cuda)`` copy from
+    pageable memory and then synchronize the stream, so the host waits for
+    all the work queued before them.  On CUDA this stages ``data`` in
+    pinned memory and copies it ``non_blocking``, in stream order; the
+    caching host allocator keeps the pinned block until the copy has run.
+    """
+    if isinstance(data, torch.Tensor):
+        host = data if dtype is None else data.to(dtype)
+    else:
+        host = torch.tensor(data, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def upload_into(dst: torch.Tensor, data) -> None:
+    """Copy host ``data`` into the tensor ``dst`` in place, on CUDA
+    without the host waiting (as :func:`upload`)."""
+    src = torch.as_tensor(data)
+    if dst.is_cuda:
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)

@@ -172,6 +172,11 @@ def main(argv=None) -> int:
     print(f"ttft mean={st.mean_ttft_s * 1e3:.1f}ms  "
           f"latency mean={st.mean_latency_s * 1e3:.1f}ms  "
           f"slot_util={st.slot_utilization:.2f}")
+    # host: a working step's wall time less its waits in the readbacks
+    print(f"host={st.host_time_s / max(st.steps, 1) * 1e3:.2f}ms/step "
+          f"({st.steps} steps)  queue wait p95="
+          f"{np.percentile([c.queue_s for c in completions], 95) * 1e3:.2f}"
+          f"ms")
     print("generated:", completions[0].tokens[:12])
     return 0
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 
 
@@ -134,6 +135,11 @@ def main(argv=None) -> int:
     print(f"steps={len(sess.history)} loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} (floor~{data.entropy_floor():.3f}) "
           f"[{dt:.1f}s, {dt / max(len(losses), 1) * 1e3:.0f} ms/step]")
+    marked = [h for h in sess.history if "sync_s" in h]   # full periods
+    if marked:
+        print("ms/step by part: " + "  ".join(
+            f"{k[:-2]}={statistics.fmean(h[k] for h in marked) * 1e3:.2f}"
+            for k in ("grads_s", "optimizer_s", "sync_s")))
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(sess.history, f)

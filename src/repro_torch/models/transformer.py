@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.partial_sync import UnitEntry, UnitLayout
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention, write_token_to_pages
+from ..spans import span
 from .layers import (apply_rope, dense, dense_init, dense_spec, embed,
                      embed_init, gqa_attention, layer_norm, mlp_apply,
                      mlp_init, mlp_spec, norm_init, norm_spec, rms_norm,
@@ -428,7 +429,13 @@ class DecoderLM:
             out = flash_attention(q, k, v, causal=True, window=cfg.window)
             return out.reshape(b, s, -1) @ p["wo"]["w"]
 
-        x = self._blocks(params, x, attend)
+        # a prompt's eager layers make thousands of host operations: a
+        # span a layer keeps each idle gap of the card near a named range
+        for group, kind, n in self.cfg.runs():
+            for i in range(n):
+                with span("repro_torch.serve.prefill_layer"):
+                    x = self._block(attend, group, kind, i,
+                                    _layer(params[group], i), x)
         return self._head(params, x[:, -1:]), cache
 
     def decode_step(self, params, cache, token, pos

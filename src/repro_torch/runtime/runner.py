@@ -31,7 +31,12 @@ Counterpart of ``repro.runtime.runner`` (sync mode):
     without a graph.
 
   Both give the per-step path's states bitwise: the same bodies run the
-  same kernels in the same order;
+  same kernels in the same order.  Each full period records a device
+  boundary at its start and after each phase's gradients, optimizer and
+  sync (:class:`~repro_torch.spans.PhaseMarks`; a captured period
+  records them on every replay); they are read after the period's one
+  synchronize, and every history row of a full period carries its
+  phase's ``grads_s``, ``optimizer_s`` and ``sync_s``;
 * **checkpoint/restart** — periodic async checkpoints
   (``RunnerConfig.ckpt_every``, ``meta={"plan": ...}``); an exception
   inside a step or period restores the last checkpoint **in place** and
@@ -66,6 +71,7 @@ from ..core.plans import SyncPlan, local_plan
 from ..kernels.fused_adam_sync import fused_adamw
 from ..kernels.int8_quant import dequantize_rows, quantize_rows
 from ..lint import consumes, hot_path
+from ..spans import PhaseMarks, span
 from ..tree import tree_leaves
 from .pipeline import PeriodPrefetcher, to_device
 from .step import (StepConfig, TrainState, compose_makeup_step,
@@ -181,14 +187,13 @@ class Runner:
         self._build_steps()
         self._times: list[float] = []
         self.period_times: list[float] = []
-        # on CUDA, each full period's span between CUDA events recorded
-        # where its wall clock starts and after its last work (seconds)
-        self.period_event_times: list[float] = []
         self.history: list[dict] = []
         self.pending_units: set[int] = set()
         self.skipped_syncs = 0
         self.retries = 0
-        self._undrained: list[tuple[int, float, Any]] = []
+        # (first step, host seconds, device metrics, seconds by part a
+        # phase) of each period not yet drained
+        self._undrained: list[tuple[int, float, Any, list[dict]]] = []
         self._prefetch: PeriodPrefetcher | None = None
         self._graph_stream: torch.cuda.Stream | None = None
         self._graph_pool = None
@@ -205,6 +210,8 @@ class Runner:
             cfg=self.step_cfg)
         self._makeup_cache: dict[tuple, Callable] = {}
         self._period_cache: dict[tuple, Callable] = {}
+        # one record of phase marks a make-up key, for either mode
+        self._marks: dict[tuple, PhaseMarks] = {}
         self._drop_graphs()
 
     def _drop_graphs(self) -> None:
@@ -249,8 +256,14 @@ class Runner:
         if makeup not in self._period_cache:
             self._period_cache[makeup] = make_period_step(
                 self.model, self.optimizer, self.plan, cfg=self.step_cfg,
-                makeup_units=makeup)
+                makeup_units=makeup, marks=self._phase_marks(makeup))
         return self._period_cache[makeup]
+
+    def _phase_marks(self, makeup: tuple[int, ...]) -> PhaseMarks:
+        """The phase marks of a full period with make-up ``makeup``."""
+        if makeup not in self._marks:
+            self._marks[makeup] = PhaseMarks(self.plan.H)
+        return self._marks[makeup]
 
     def _can_restore(self) -> bool:
         """Only swallow a failure if a checkpoint exists to restart from
@@ -275,30 +288,33 @@ class Runner:
         """Turn device-resident period metrics into history rows with ONE
         device-to-host transfer for every undrained period.  A period's
         metrics are H per-phase dicts (pipeline) or one dict of ``[H]``
-        tensors (compiled)."""
+        tensors (compiled); its phases' seconds by part are on the host
+        already."""
         if not self._undrained:
             return
-        vals = []
-        for _, _, ms in self._undrained:
-            if isinstance(ms, dict):
-                vals += [v.float() for v in ms.values()]
-            else:
-                vals += [v.float().reshape(1) for m in ms for v in m.values()]
-        flat = iter(torch.cat(vals).cpu().tolist())
-        for r0, dt, ms in self._undrained:
-            if isinstance(ms, dict):
-                cols = {k: [next(flat) for _ in range(len(v))]
-                        for k, v in ms.items()}
-                rows = [{k: c[h] for k, c in cols.items()}
-                        for h in range(len(next(iter(cols.values()))))]
-            else:
-                rows = [{k: next(flat) for k in m} for m in ms]
-            for h, row in enumerate(rows):
-                self.history.append({
-                    "step": r0 + h,
-                    "phase": self.plan.phase_of_iteration(r0 + h),
-                    "time": dt / len(rows), **row})
-        self._undrained.clear()
+        with span("repro_torch.train.drain"):
+            vals = []
+            for _, _, ms, _ in self._undrained:
+                if isinstance(ms, dict):
+                    vals += [v.float() for v in ms.values()]
+                else:
+                    vals += [v.float().reshape(1) for m in ms
+                             for v in m.values()]
+            flat = iter(torch.cat(vals).cpu().tolist())
+            for r0, dt, ms, parts in self._undrained:
+                if isinstance(ms, dict):
+                    cols = {k: [next(flat) for _ in range(len(v))]
+                            for k, v in ms.items()}
+                    rows = [{k: c[h] for k, c in cols.items()}
+                            for h in range(len(next(iter(cols.values()))))]
+                else:
+                    rows = [{k: next(flat) for k in m} for m in ms]
+                for h, row in enumerate(rows):
+                    self.history.append({
+                        "step": r0 + h,
+                        "phase": self.plan.phase_of_iteration(r0 + h),
+                        "time": dt / len(rows), **row, **parts[h]})
+            self._undrained.clear()
 
     # ------------------------------------------------------------------- run
     @consumes("state")
@@ -450,37 +466,36 @@ class Runner:
             batch = pipe.get(r)
             makeup = tuple(sorted(self.pending_units))
             if compiled and dev.type == "cuda":
-                self._prepare_graph(makeup, state, batch)
+                with span("repro_torch.train.capture"):
+                    self._prepare_graph(makeup, state, batch)
             t0 = time.perf_counter()
-            if dev.type == "cuda":
-                events = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                events[0].record()
             try:
-                if in_period(inject_failure_at):
-                    inject_failure_at = None
-                    raise RuntimeError("injected node failure")
-                self.pending_units.clear()
-                if compiled:
-                    metrics = self._compiled_period(makeup, state, batch)
-                else:
-                    # the H phase steps queued back to back: no host
-                    # round-trip between phases
-                    metrics = []
-                    for h in range(H):
-                        fn = self._makeup_step(makeup) if h == 0 and makeup \
-                            else self._steps[h]
-                        state, m = fn(state, batch[h])
-                        metrics.append(m)
-                if r + 2 * H <= end:
-                    # stage p+1..p+depth under p's device work; never past
-                    # the last full period of this run
-                    pipe.prefetch(r + H, last=end - H)
-                if dev.type == "cuda":
-                    events[1].record()
-                # one synchronize at the period boundary times the
-                # COMPLETED period, parameter syncs included
-                _synchronize(state)
+                with span("repro_torch.train.period"):
+                    if in_period(inject_failure_at):
+                        inject_failure_at = None
+                        raise RuntimeError("injected node failure")
+                    self.pending_units.clear()
+                    marks = self._phase_marks(makeup)
+                    if compiled:
+                        metrics = self._compiled_period(makeup, state, batch)
+                    else:
+                        # the H phase steps queued back to back: no host
+                        # round-trip between phases
+                        marks.start(dev)
+                        metrics = []
+                        for h in range(H):
+                            fn = self._makeup_step(makeup) \
+                                if h == 0 and makeup else self._steps[h]
+                            state, m = fn(state, batch[h], marks.phase(h))
+                            metrics.append(m)
+                    if r + 2 * H <= end:
+                        # stage p+1..p+depth under p's device work; never
+                        # past the last full period of this run
+                        with span("repro_torch.train.prefetch"):
+                            pipe.prefetch(r + H, last=end - H)
+                    # one synchronize at the period boundary times the
+                    # COMPLETED period, parameter syncs included
+                    _synchronize(state)
             except Exception:                         # noqa: BLE001
                 if not self._can_restore():
                     raise
@@ -491,9 +506,7 @@ class Runner:
                 continue
 
             dt = time.perf_counter() - t0
-            if dev.type == "cuda":
-                self.period_event_times.append(
-                    events[0].elapsed_time(events[1]) / 1e3)
+            parts = marks.read()
             if inject_straggler_at is not None and \
                     in_period(inject_straggler_at[0]):
                 dt += inject_straggler_at[1]
@@ -510,13 +523,14 @@ class Runner:
                 self.skipped_syncs += 1
             self.period_times.append(dt)
 
-            self._undrained.append((r, dt, metrics))
+            self._undrained.append((r, dt, metrics, parts))
             if len(self._undrained) >= self.run_cfg.log_every:
                 self._drain_metrics()
             if self.ckpt is not None and \
                     (r + H) // cfg.ckpt_every > r // cfg.ckpt_every:
-                self.ckpt.save(r + H, state,
-                               meta={"plan": self.plan.to_json()})
+                with span("repro_torch.train.checkpoint"):
+                    self.ckpt.save(r + H, state,
+                                   meta={"plan": self.plan.to_json()})
             r += H
         self._drain_metrics()
         if self.ckpt is not None:

@@ -23,9 +23,11 @@ rate and the loss stay on the device, so a step reads nothing back to
 the host, and a CUDA graph that captured a step replays it on the same
 tensors.  :func:`make_period_step` composes a whole period's phase
 bodies into the one function the runner's ``compiled`` mode captures.
-The optimizer update and the syncs run in ``torch.profiler`` ranges
+The optimizer update and the syncs run in spans
 (``repro_torch.optimizer``, ``repro_torch.sync``), so a profile can
-charge device time to them.
+charge device time to them; a step given a ``mark`` also records a
+device boundary after each of its parts (:class:`~repro_torch.spans.
+PhaseMarks`), which a captured period keeps recording on every replay.
 
 **Serving.**  The reference builds jitted closures
 (``make_slot_prefill_step`` and friends) and vmaps single-lane steps over
@@ -41,7 +43,6 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.outer_opt import OuterConfig, OuterState
 from ..core.partial_sync import (UnitLayout, contiguous_ranges, divergence,
@@ -49,6 +50,7 @@ from ..core.partial_sync import (UnitLayout, contiguous_ranges, divergence,
 from ..core.plans import SyncPlan, local_plan
 from ..core.sync_policies import SyncPolicy, resolve_policy
 from ..kernels import _cost
+from ..spans import PhaseMarks, span
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["TrainState", "StepConfig", "init_train_state",
@@ -59,6 +61,10 @@ __all__ = ["TrainState", "StepConfig", "init_train_state",
            "slot_decode_paged"]
 
 Tree = Any
+
+
+def _no_mark(part: str) -> None:
+    """A step run without phase marks."""
 
 
 # ---------------------------------------------------------------------------
@@ -183,25 +189,31 @@ def make_train_step(model, optimizer, plan: SyncPlan, phase: int, *,
     cuts = _cuts_for(units, layout) if cfg.segment_cuts else ()
     policy = resolve_policy(cfg)
 
-    def train_step(state: TrainState, batch: dict
+    def train_step(state: TrainState, batch: dict, mark=_no_mark
                    ) -> tuple[TrainState, dict]:
+        """``mark(part)`` records the boundary after each part."""
         losses, grads = per_worker_grads(
             model, state.params, batch, segment_cuts=cuts,
             n_microbatches=cfg.n_microbatches)
         metrics = {"loss": losses.mean()}
+        mark("grads")
 
         if not plan.is_parameter_sync:           # DDP: gradient all-reduce
-            with record_function("repro_torch.sync"):
+            with span("repro_torch.sync"):
                 grads = tree_worker_mean(grads)
-        with record_function("repro_torch.optimizer"):
+            mark("sync")
+        with span("repro_torch.optimizer"):
             params, opt_state = optimizer.update(grads, state.opt_state,
                                                  state.params, state.step)
+        mark("optimizer")
         del grads
         ef, outer = state.ef, state.outer
-        if plan.is_parameter_sync and units:
-            with record_function("repro_torch.sync"):
-                params, ef, outer = policy.apply(params, ef, outer, units,
-                                                 layout)
+        if plan.is_parameter_sync:
+            if units:
+                with span("repro_torch.sync"):
+                    params, ef, outer = policy.apply(params, ef, outer,
+                                                     units, layout)
+            mark("sync")
         if cfg.track_divergence:
             metrics["divergence"] = divergence(params)
         state.step.add_(1)
@@ -223,9 +235,11 @@ def compose_makeup_step(local_step, units, layout: UnitLayout):
     shared by the runner's per-step and fused paths."""
     units = tuple(sorted(units))
 
-    def makeup(state: TrainState, batch: dict):
-        new_state, m = local_step(state, batch)
-        sync_units(new_state.params, list(units), layout)
+    def makeup(state: TrainState, batch: dict, mark=_no_mark):
+        new_state, m = local_step(state, batch, mark)
+        with span("repro_torch.sync"):
+            sync_units(new_state.params, list(units), layout)
+        mark("sync")            # the make-up's sync ends the sync part
         return new_state, m
 
     return makeup
@@ -233,7 +247,8 @@ def compose_makeup_step(local_step, units, layout: UnitLayout):
 
 def make_period_step(model, optimizer, plan: SyncPlan, *,
                      cfg: StepConfig = StepConfig(),
-                     makeup_units: tuple[int, ...] = ()):
+                     makeup_units: tuple[int, ...] = (),
+                     marks: PhaseMarks | None = None):
     """All ``H`` phase steps of ``plan`` as one function (the
     reference's one jitted period program).
 
@@ -244,7 +259,9 @@ def make_period_step(model, optimizer, plan: SyncPlan, *,
     a period gives that path's states bitwise.  ``makeup_units``
     (straggler make-up at a period boundary) makes phase 0 the make-up
     body (:func:`compose_makeup_step`).  Returns the state, updated in
-    place, and the metrics stacked ``[H]`` on the device.
+    place, and the metrics stacked ``[H]`` on the device.  ``marks``
+    (:class:`~repro_torch.spans.PhaseMarks`), if given, time each phase's
+    parts, one recorder a phase, whichever body it shares.
     """
     layout = model.unit_layout()
     segments = list(plan.phase_segments())
@@ -265,11 +282,14 @@ def make_period_step(model, optimizer, plan: SyncPlan, *,
 
     def period_step(state: TrainState, batch: dict
                     ) -> tuple[TrainState, dict]:
+        if marks is not None:
+            marks.start(state.step.device)
         metrics = []
         for start, length in segments:
             for h in range(start, start + length):
-                state, m = bodies[start](state, {k: v[h] for k, v in
-                                                 batch.items()})
+                state, m = bodies[start](
+                    state, {k: v[h] for k, v in batch.items()},
+                    _no_mark if marks is None else marks.phase(h))
                 metrics.append(m)
         return state, {k: torch.stack([m[k] for m in metrics])
                        for k in metrics[0]}

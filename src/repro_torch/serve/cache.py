@@ -26,6 +26,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..device import upload
+
 __all__ = ["CachePool", "PagedCachePool", "prefill_scatter"]
 
 Tree = Any
@@ -108,7 +110,7 @@ class CachePool:
     def commit(self, slots, lanes: Tree) -> None:
         """Copy K freshly prefilled lanes (leaves ``[layers, K, depth,
         ...]``) into the arena lanes of ``slots``."""
-        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        idx = upload(slots, self.device, torch.long)
         for a, ln in _zip_leaves(self.arena, lanes):
             a[:, idx, :ln.shape[2]] = ln
 
@@ -267,17 +269,17 @@ class PagedCachePool(CachePool):
     def block_table_row(self, slot: int) -> torch.Tensor:
         """``[max_blocks]`` int32 block-table row of ``slot`` on the pool's
         device, copied from the host table."""
-        return torch.tensor(self.block_tables[slot], device=self.device)
+        return upload(self.block_tables[slot], self.device)
 
     def block_table_rows(self, slots) -> torch.Tensor:
         """``[K, max_blocks]`` int32 device rows for one admission group."""
         rows = self.block_tables[np.asarray(slots, np.int64)]
-        return torch.tensor(rows, device=self.device)
+        return upload(rows, self.device)
 
     def device_block_tables(self) -> torch.Tensor:
         """The whole ``[n_slots, max_blocks]`` int32 table on the pool's
         device, copied from the host table."""
-        return torch.tensor(self.block_tables, device=self.device)
+        return upload(self.block_tables, self.device)
 
     def page_bytes(self) -> int:
         """Device bytes of ONE page across every layer and leaf."""

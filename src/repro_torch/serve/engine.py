@@ -49,6 +49,19 @@ slot-batched call, and all first tokens of the tick reach the host in
 one read; ``batched_admission=False`` prefills and syncs per request.
 Both give the same greedy token streams.  Prefill runs eagerly.
 
+Each part of :meth:`ServeEngine.step` runs in a span
+(:func:`~repro_torch.spans.span`): ``repro_torch.serve.step`` around
+``.schedule``, ``.prefill`` (a group), ``.first_token_read``,
+``.block_inputs``, ``.block``, ``.block_read`` and ``.harvest``; inside
+a prefill, ``.prefill_layer`` (a layer of a :class:`~repro_torch.models.
+transformer.DecoderLM` prompt) and ``.prefill_commit`` (the lanes into
+the pool, the first tokens, the slot state); so a profile names what the
+host was doing in every idle gap of the device.
+A step that ran work adds its wall time, less what it waited in its
+two readbacks, to ``EngineStats.host_time_s``.  Host values go up pinned
+and ``non_blocking`` (:func:`~repro_torch.device.upload`), so the
+readbacks are the step's only synchronizations.
+
 Entry points::
 
     engine.generate(requests)              # synchronous, list[Completion]
@@ -79,7 +92,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, upload, upload_into
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_attention.ops import launch_scratch
@@ -87,6 +100,7 @@ from ..kernels.ssd_scan import ssd_chunk_grouped
 from ..lint import hot_path
 from ..runtime.step import (prefix_len, slot_decode, slot_decode_paged,
                             slot_prefill)
+from ..spans import span
 from ..tree import tree_map
 from .cache import CachePool, PagedCachePool
 from .config import EngineConfig
@@ -240,6 +254,7 @@ class ServeEngine:
         # per-slot host generator of a sampling request (None: greedy)
         self._gens: list[torch.Generator | None] = [None] * self.config.slots
         self._stats = EngineStats()
+        self._read_s = 0.0          # this step's waits in its readbacks
         self._completed: deque[Completion] = deque(
             maxlen=self.config.completed_cap)
         # distinct shapes each prefill-side step ran (compile_stats)
@@ -396,7 +411,8 @@ class ServeEngine:
         """Prefill one bucket's ``(slot, RequestState)`` pairs in one
         call, commit their KV into the pool and load their slot state in
         place.  Returns (first tokens ``[K]``, still-active ``[K]``) on
-        the device; nothing here waits for the device."""
+        the device; nothing here waits for the device (host values go
+        up through :func:`~repro_torch.device.upload`)."""
         dev = self.device
         slots = [slot for slot, _ in members]
         reqs = [rs.request for _, rs in members]
@@ -414,47 +430,49 @@ class ServeEngine:
             self.pool.extend_many(zip(slots, pos, strict=True))
         refeed = None
         if needs_refeed:
-            refeed = (torch.tensor([r.tokens[-1] for r in reqs],
-                                   dtype=torch.int32, device=dev),
-                      torch.tensor([p - 1 for p in pos], dtype=torch.int32,
-                                   device=dev))
+            refeed = (upload([r.tokens[-1] for r in reqs], dev,
+                             torch.int32),
+                      upload([p - 1 for p in pos], dev, torch.int32))
         # the frontend's inputs, stacked [K, ...] per input
-        extra = [torch.stack([torch.as_tensor(r.extra[j]) for r in reqs])
-                 .to(dev) for j in range(len(reqs[0].extra))]
+        extra = [upload(torch.stack([torch.as_tensor(r.extra[j])
+                                     for r in reqs]), dev)
+                 for j in range(len(reqs[0].extra))]
         logits, lanes = slot_prefill(
-            self.model, self.params, torch.tensor(toks, device=dev), depth,
+            self.model, self.params, upload(toks, dev), depth,
             refeed, *extra, frontend=self.frontend)
-        self.pool.commit(slots, lanes)
+        # the prompt's layers make thousands of host operations: its
+        # own span keeps what follows near a named range in a profile
+        with span("repro_torch.serve.prefill_commit"):
+            self.pool.commit(slots, lanes)
 
-        sps = [r.sampling or SamplingParams() for r in reqs]
-        u = []
-        for slot, sp in zip(slots, sps, strict=True):
-            gen = None
-            if sp.temperature > 0:
-                gen = torch.Generator().manual_seed(sp.seed)
-            self._gens[slot] = gen
-            u.append(draw_uniform(gen) if gen is not None else 0.0)
-        f32 = dict(dtype=torch.float32, device=dev)
-        i32 = dict(dtype=torch.int32, device=dev)
-        temp = torch.tensor([sp.temperature for sp in sps], **f32)
-        top_k = torch.tensor([sp.top_k for sp in sps], **i32)
-        eos = torch.tensor([-1 if r.eos_id is None else r.eos_id
-                            for r in reqs], **i32)
-        max_gen = torch.tensor([r.max_new_tokens for r in reqs], **i32)
-        tok = self._sample(logits, temp, top_k, torch.tensor(u, **f32))
-        # eos is -1 for "no stop token"; sampled ids are >= 0
-        active = (max_gen > 1) & (tok != eos)
+            sps = [r.sampling or SamplingParams() for r in reqs]
+            u = []
+            for slot, sp in zip(slots, sps, strict=True):
+                gen = None
+                if sp.temperature > 0:
+                    gen = torch.Generator().manual_seed(sp.seed)
+                self._gens[slot] = gen
+                u.append(draw_uniform(gen) if gen is not None else 0.0)
+            f32, i32 = torch.float32, torch.int32
+            temp = upload([sp.temperature for sp in sps], dev, f32)
+            top_k = upload([sp.top_k for sp in sps], dev, i32)
+            eos = upload([-1 if r.eos_id is None else r.eos_id
+                          for r in reqs], dev, i32)
+            max_gen = upload([r.max_new_tokens for r in reqs], dev, i32)
+            tok = self._sample(logits, temp, top_k, upload(u, dev, f32))
+            # eos is -1 for "no stop token"; sampled ids are >= 0
+            active = (max_gen > 1) & (tok != eos)
 
-        idx = torch.tensor(slots, dtype=torch.long, device=dev)
-        st = self._state
-        st.token[idx] = tok
-        st.pos[idx] = torch.tensor(pos, **i32)
-        st.ngen[idx] = 1
-        st.active[idx] = active
-        st.temp[idx] = temp
-        st.top_k[idx] = top_k
-        st.eos[idx] = eos
-        st.max_gen[idx] = max_gen
+            idx = upload(slots, dev, torch.long)
+            st = self._state
+            st.token[idx] = tok
+            st.pos[idx] = upload(pos, dev, i32)
+            st.ngen.index_fill_(0, idx, 1)  # a scalar put would copy up
+            st.active[idx] = active
+            st.temp[idx] = temp
+            st.top_k[idx] = top_k
+            st.eos[idx] = eos
+            st.max_gen[idx] = max_gen
         self._stats.prompt_tokens += sum(lens)
         return tok, active
 
@@ -463,16 +481,21 @@ class ServeEngine:
                finished: list[Completion]) -> None:
         """Serial admission: one prefill and one host sync per request."""
         t0 = time.perf_counter()
-        tok, active = self._prefill_group([(slot, rs)], batched=False)
-        # repro-lint: disable=HOST-SYNC -- intentional: the first token
-        # must reach the host here; this sync IS the TTFT measurement.
-        tok0, alive = torch.stack([tok, active.to(torch.int32)]).tolist()
-        now = time.perf_counter()
+        with span("repro_torch.serve.prefill"):
+            tok, active = self._prefill_group([(slot, rs)], batched=False)
+        with span("repro_torch.serve.first_token_read"):
+            read = time.perf_counter()
+            # repro-lint: disable=HOST-SYNC -- intentional: the first token
+            # must reach the host here; this sync IS the TTFT measurement.
+            tok0, alive = torch.stack([tok, active.to(torch.int32)]).tolist()
+            now = time.perf_counter()
+        self._read_s += now - read
         rs.first_token_t = now
         self._stats.prefill_time_s += now - t0
-        rs.emit(tok0[0])
-        if not alive[0]:
-            finished.append(self._finish_slot(slot))
+        with span("repro_torch.serve.harvest"):
+            rs.emit(tok0[0])
+            if not alive[0]:
+                finished.append(self._finish_slot(slot))
 
     @hot_path
     def _admit_batch(self, groups, finished: list[Completion]) -> None:
@@ -481,22 +504,28 @@ class ServeEngine:
         t0 = time.perf_counter()
         pending = []
         for _key, members in groups:
-            tok, active = self._prefill_group(members)
+            with span("repro_torch.serve.prefill"):
+                tok, active = self._prefill_group(members)
             self._stats.prefill_batches += 1
             pending.append((members, tok, active))
-        host = torch.cat([torch.stack([tok, act.to(torch.int32)], 1)
-                          for _, tok, act in pending]).cpu().tolist()
-        now = time.perf_counter()
+        with span("repro_torch.serve.first_token_read"):
+            first = torch.cat([torch.stack([tok, act.to(torch.int32)], 1)
+                               for _, tok, act in pending])
+            read = time.perf_counter()
+            host = first.cpu().tolist()
+            now = time.perf_counter()
+        self._read_s += now - read
         self._stats.prefill_time_s += now - t0
         self._stats.admit_ticks += 1
-        rows = iter(host)
-        for members, _, _ in pending:
-            for slot, rs in members:
-                t, alive = next(rows)
-                rs.first_token_t = now
-                rs.emit(t)
-                if not alive:
-                    finished.append(self._finish_slot(slot))
+        with span("repro_torch.serve.harvest"):
+            rows = iter(host)
+            for members, _, _ in pending:
+                for slot, rs in members:
+                    t, alive = next(rows)
+                    rs.first_token_t = now
+                    rs.emit(t)
+                    if not alive:
+                        finished.append(self._finish_slot(slot))
 
     def _finish_slot(self, slot: int) -> Completion:
         rs = self.scheduler.finish(slot)
@@ -510,7 +539,8 @@ class ServeEngine:
             n_prompt=len(req.tokens),
             finish_reason="stop" if stop else "length",
             ttft_s=(rs.first_token_t or now) - rs.submit_t,
-            latency_s=now - rs.submit_t)
+            latency_s=now - rs.submit_t,
+            queue_s=(rs.admit_t or now) - rs.submit_t)
         st = self._stats
         st.requests_completed += 1
         st.generated_tokens += len(rs.tokens)
@@ -605,7 +635,7 @@ class ServeEngine:
                 pos = self._prefix_len(rs.request) \
                     + len(rs.request.tokens) + len(rs.tokens) - 1
                 self.pool.extend(slot, pos + db)
-            self._block_tables.copy_(torch.from_numpy(self.pool.block_tables))
+            upload_into(self._block_tables, self.pool.block_tables)
         samplers = [(slot, gen) for slot, gen in enumerate(self._gens)
                     if gen is not None]
         if not samplers:
@@ -613,52 +643,74 @@ class ServeEngine:
         u = np.zeros((db, self.config.slots), np.float32)
         for slot, gen in samplers:
             u[:, slot] = [draw_uniform(gen) for _ in range(db)]
-        self._u.copy_(torch.from_numpy(u))
+        upload_into(self._u, u)
         return "sampled"
 
     @hot_path
     @torch.no_grad()
     def step(self) -> list[Completion]:
         """One scheduling tick: admit into free slots, then run one decode
-        block.  Returns requests that finished this tick."""
+        block.  Returns requests that finished this tick.  A tick that
+        admits or decodes counts in ``stats.steps``, and its wall time
+        less its waits in the two readbacks in ``stats.host_time_s``."""
+        start = time.perf_counter()
+        self._read_s = 0.0
         finished: list[Completion] = []
-        if self.config.batched_admission:
-            groups = self.scheduler.admission_groups(self._bucket_key)
+        with span("repro_torch.serve.step"):
+            with span("repro_torch.serve.schedule"):
+                if self.config.batched_admission:
+                    groups = self.scheduler.admission_groups(
+                        self._bucket_key)
+                    admitted = []
+                else:
+                    groups = []
+                    admitted = self.scheduler.admissions()
+            worked = len(self.scheduler.running) > 0   # admitted included
             if groups:
                 self._admit_batch(groups, finished)
-        else:
-            admitted = self.scheduler.admissions()
             if admitted:
                 self._stats.admit_ticks += 1
             for slot, rs in admitted:
                 self._admit(slot, rs, finished)
 
-        if self.scheduler.running:
-            variant = self._load_block_inputs()
-            t0 = time.perf_counter()
-            self._variants[variant]()
-            # ONE host read per block: emitted tokens, liveness, ticks run
-            host = self._readback.cpu().numpy()
-            self._stats.decode_time_s += time.perf_counter() - t0
-            n, db = self.config.slots, self.config.decode_block
-            out_host = host[:db * n].reshape(db, n)
-            active_host = host[db * n:-1]
-            n_iters = int(host[-1])
-            self.block_stats.blocks[variant] += 1
-            self.block_stats.ticks_run += n_iters
-            st = self._stats
-            st.decode_ticks += 1
-            st.slot_ticks_total += n_iters * n
-            for slot in list(self.scheduler.running):
-                col = out_host[:, slot]
-                toks = col[col >= 0]
-                st.slot_ticks_active += len(toks)
-                rs = self.scheduler.running[slot]
-                for t in toks:
-                    rs.emit(int(t))
-                if not active_host[slot]:
-                    finished.append(self._finish_slot(slot))
-        self._completed.extend(finished)
+            if self.scheduler.running:
+                with span("repro_torch.serve.block_inputs"):
+                    variant = self._load_block_inputs()
+                t0 = time.perf_counter()
+                with span("repro_torch.serve.block"):
+                    self._variants[variant]()
+                with span("repro_torch.serve.block_read"):
+                    read = time.perf_counter()
+                    # ONE host read per block: emitted tokens, liveness,
+                    # ticks run
+                    host = self._readback.cpu().numpy()
+                    now = time.perf_counter()
+                self._read_s += now - read
+                self._stats.decode_time_s += now - t0
+                with span("repro_torch.serve.harvest"):
+                    n, db = self.config.slots, self.config.decode_block
+                    out_host = host[:db * n].reshape(db, n)
+                    active_host = host[db * n:-1]
+                    n_iters = int(host[-1])
+                    self.block_stats.blocks[variant] += 1
+                    self.block_stats.ticks_run += n_iters
+                    st = self._stats
+                    st.decode_ticks += 1
+                    st.slot_ticks_total += n_iters * n
+                    for slot in list(self.scheduler.running):
+                        col = out_host[:, slot]
+                        toks = col[col >= 0]
+                        st.slot_ticks_active += len(toks)
+                        rs = self.scheduler.running[slot]
+                        for t in toks:
+                            rs.emit(int(t))
+                        if not active_host[slot]:
+                            finished.append(self._finish_slot(slot))
+            self._completed.extend(finished)
+        if worked:
+            self._stats.steps += 1
+            self._stats.host_time_s += time.perf_counter() - start \
+                - self._read_s
         return finished
 
     # ----------------------------------------------------------- frontends

@@ -15,6 +15,7 @@ the engine.  Per-request progress is tracked in :class:`RequestState`.
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Hashable
@@ -32,6 +33,7 @@ class RequestState:
     request: Request
     on_token: Callable | None = None       # (request_id, token, index)
     submit_t: float = 0.0
+    admit_t: float | None = None           # given a slot
     first_token_t: float | None = None
     slot: int | None = None
     tokens: list[int] = field(default_factory=list)
@@ -80,7 +82,8 @@ class Scheduler:
         worst-case footprint (``need_tokens``) is offered to the pool,
         and a paged pool that cannot commit enough pages rejects the
         admission — the request stays queued (head-of-line, so ordering
-        is preserved) until retirements free capacity.
+        is preserved) until retirements free capacity.  Each admitted
+        request's ``admit_t`` is stamped (``time.perf_counter()``).
         """
         budget = self.max_prefills_per_tick
         out: list[tuple[int, RequestState]] = []
@@ -91,6 +94,7 @@ class Scheduler:
                 break
             rs = self.waiting.popleft()
             rs.slot = slot
+            rs.admit_t = time.perf_counter()
             self.running[slot] = rs
             out.append((slot, rs))
         return out

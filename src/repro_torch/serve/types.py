@@ -59,6 +59,7 @@ class Completion:
     finish_reason: str                     # "stop" (EOS) | "length"
     ttft_s: float = 0.0                    # submit -> first token
     latency_s: float = 0.0                 # submit -> finished
+    queue_s: float = 0.0                   # submit -> given a slot
 
 
 @dataclass
@@ -77,6 +78,9 @@ class EngineStats:
                                            # under batched admission)
     slot_ticks_active: int = 0             # sum over ticks of active slots
     slot_ticks_total: int = 0              # ticks x slots (utilization denom)
+    steps: int = 0                         # step() calls that ran work
+    host_time_s: float = 0.0               # their wall time less their
+                                           # waits in device readbacks
     ttft_s: list[float] = field(default_factory=list)
     latency_s: list[float] = field(default_factory=list)
 
@@ -132,6 +136,8 @@ class EngineStats:
             "mean_ttft_s": self.mean_ttft_s,
             "mean_latency_s": self.mean_latency_s,
             "slot_utilization": self.slot_utilization,
+            "steps": self.steps,
+            "host_time_s": self.host_time_s,
         }
 
 
