@@ -371,7 +371,9 @@ from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_cost  # noqa: E402
-from repro_torch.kernels.fused_adam_sync import fused_adamw  # noqa: E402
+from repro_torch.kernels.fused_adam_sync import (clip_partials,  # noqa: E402
+                                                 clip_scale, clip_scale_ref,
+                                                 fused_adamw)
 from repro_torch.kernels.fused_adam_sync.ops import adamw_cost  # noqa: E402
 from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
                                             quantize_rows)
@@ -1414,6 +1416,74 @@ def check_adam() -> dict:
             "checks": checks}
 
 
+def check_clip() -> dict:
+    """The clip folded into AdamW, on the largest leaf with bfloat16 p
+    and g (the train phase's): the norm kernel against a float64 sum of
+    squares, then timed against its byte bound (g read once) and the
+    plain composition (the float32 cast and ``torch.dot``); the scaled
+    AdamW on bfloat16 g against the plain version, then timed against
+    its bound (22 B an element) and against what it replaces (the cast,
+    ``* scale`` and the float32-g kernel)."""
+    shape = (TRAIN_WORKERS, TRAIN_LAYERS, TRAIN_MODEL.d_model,
+             TRAIN_MODEL.d_ff)
+    dtype = torch.bfloat16
+    args, _, flops = adam_case(dtype, shape)
+    p, g32, m, v, hyper = args
+    g = g32.mul_(3.0).to(dtype)
+    del g32
+    _free()
+    scratch = torch.empty(clip_partials([g]) + 2, device="cuda")
+    scale = clip_scale([g], 1.0, scratch)
+    torch.cuda.synchronize()
+    want = float((g.double() ** 2).sum())
+    norm_err = abs(float(scratch[-1]) - want) / want
+    if norm_err > 1e-6:
+        raise RuntimeError(f"clip_scale: sum of squares off by {norm_err}")
+    n = g.numel()
+    norm_ms = median_ms(lambda: clip_scale([g], 1.0, scratch))
+    norm_plain_ms = median_ms(lambda: clip_scale_ref([g], 1.0), reps=10)
+    norm_bound, norm_by = bound(n * g.element_size(), (2.0 * n, torch.float32))
+    a = [p.clone(), g, m.clone(), v.clone()]
+    b = [p.clone(), g, m.clone(), v.clone()]
+    fused_adamw(*a, hyper, scale=scale, impl="cuda")
+    fused_adamw(*b, hyper, scale=scale, impl="ref")
+    torch.cuda.synchronize()
+    err, excess = 0.0, -1.0
+    for x, y in zip(a, b, strict=True):
+        atol, rtol = ADAM_TOL[x.dtype]
+        d = (x.float() - y.float()).abs()
+        err = max(err, d.max().item())
+        excess = max(excess, (d - atol - rtol * y.float().abs()).max().item())
+    if excess > 0:
+        raise RuntimeError(f"fused_adamw bf16 g, scaled: max abs err {err} "
+                           f"beyond its tolerance")
+    del b
+    _free()
+    ms = median_ms(lambda: fused_adamw(*a, hyper, scale=scale, impl="cuda"))
+    nbytes = adamw_cost(p, g).nbytes
+    b_ms, b_by = bound(nbytes, (flops, torch.float32))
+
+    def replaced():
+        gf = g.float() * scale
+        fused_adamw(a[0], gf, a[2], a[3], hyper, impl="cuda")
+
+    replaced_ms = median_ms(replaced, reps=10)
+    row = {"phase": "kernel", "name": "clip_in_fused_adamw",
+           "shape": f"{list(shape)} (blocks.mlp.gate.w), {n} elements",
+           "dtype": "bfloat16 p and g",
+           "norm_rel_err": norm_err, "norm_ms": norm_ms,
+           "norm_bound_ms": norm_bound, "norm_bound_by": norm_by,
+           "norm_plain_ms": norm_plain_ms,
+           "adamw_max_abs_err": err, "adamw_ms": ms,
+           "adamw_bound_ms": b_ms, "adamw_bound_by": b_by,
+           "adamw_bytes": nbytes,
+           "replaced_ms": replaced_ms,
+           "replaced": "g.float() * scale, then fused_adamw on float32 g"}
+    del a, args, p, g, m, v
+    _free()
+    return row
+
+
 def check_int8(k: int, where: str) -> list[dict]:
     """quantize_rows / dequantize_rows against their plain versions on the
     rows the int8 sync hands them (``int8_cases``); codes, scales and
@@ -1503,6 +1573,8 @@ def int8_launches(kernels: list[dict], reckoned: dict,
 
 def _reset_train_counts() -> None:
     fused_adamw.launches = 0
+    fused_adamw.scaled_launches = 0
+    clip_scale.launches = 0
     quantize_rows.launches = 0
     quantize_rows.launches_by_shape.clear()
     dequantize_rows.launches = 0
@@ -1510,6 +1582,8 @@ def _reset_train_counts() -> None:
 
 def _train_counts() -> dict:
     return {"fused_adamw": fused_adamw.launches,
+            "fused_adamw_scaled": fused_adamw.scaled_launches,
+            "clip_scale": clip_scale.launches,
             "quantize_rows": quantize_rows.launches,
             "dequantize_rows": dequantize_rows.launches}
 
@@ -1772,6 +1846,14 @@ def train(algo: str, exec_: str, *, keep: bool = False,
         raise RuntimeError(f"{phase} {algo} {exec_}: fused_adamw launched "
                            f"{counts['fused_adamw']} times, want "
                            f"{n_leaves * TRAIN_STEPS}")
+    # every AdamW launch took the clip's scale and read g as it is, after
+    # one norm pass a step (wrapper counts, captured launches included)
+    if fused_adamw.scaled_launches != fused_adamw.launches \
+            or counts["clip_scale"] != TRAIN_STEPS:
+        raise RuntimeError(f"{phase} {algo} {exec_}: {counts['clip_scale']} "
+                           f"norm passes in {TRAIN_STEPS} steps, "
+                           f"{fused_adamw.scaled_launches} of "
+                           f"{fused_adamw.launches} AdamW launches scaled")
     if (algo == "dreamddp-int8") != (counts["quantize_rows"] > 0
                                      and counts["dequantize_rows"] > 0):
         raise RuntimeError(f"{phase} {algo} {exec_}: int8 launches "
@@ -3854,6 +3936,7 @@ def main() -> int:
 
     k, where, reckoned = int8_plan()
     kernels = [check_adam(), *check_int8(k, where)]
+    emit(check_clip())
     emit(train_reference())
     runs = {}
     for algo in ("dreamddp", "dreamddp-int8"):

@@ -4,24 +4,32 @@ Operation for operation the arithmetic of the TPU kernel
 (``repro/kernels/fused_adam_sync/kernel.py:_kernel``) and of the CUDA
 kernel: the six hyperparameters come from a ``[6]`` float32 tensor, so
 ``1 - b1``, ``1 - b2`` and the bias corrections ``1 - b^t`` are taken in
-float32.  The CPU path of the optimizers runs it; on the card
-``chip_smoke.py`` holds the kernel against it.
+float32.  The clip's scale is the reference's global norm
+(``repro/optim/optimizers.py:_clip``): one ``torch.dot`` a leaf over the
+whole tree.  The CPU path of the optimizers runs both; on the card the
+tests and ``chip_smoke.py`` hold the kernels against them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_adamw_ref", "adamw_hyper", "adamw_ref"]
+__all__ = ["fused_adamw_ref", "adamw_hyper", "adamw_ref",
+           "global_norm_ref", "clip_scale_ref"]
 
 
 def fused_adamw_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-                    v: torch.Tensor, hyper: torch.Tensor) -> None:
+                    v: torch.Tensor, hyper: torch.Tensor,
+                    scale: torch.Tensor | None = None) -> None:
     """One AdamW step on a tensor quartet, **in place**: ``p`` (its own
-    dtype), ``m`` and ``v`` (float32) are overwritten; ``g`` is read.
-    ``hyper = [lr, beta1, beta2, eps, weight_decay, step + 1]``."""
+    dtype), ``m`` and ``v`` (float32) are overwritten; ``g`` (any float
+    dtype, taken in float32) is read.  ``hyper = [lr, beta1, beta2, eps,
+    weight_decay, step + 1]``; ``scale``, a float32 scalar (0-d or
+    ``[1]``), multiplies the float32 ``g`` first (the clip)."""
     lr, b1, b2, eps, wd, t = hyper.to(torch.float32).unbind()
     g = g.float()
+    if scale is not None:
+        g = g * scale.reshape(())
     m2 = b1 * m + (1.0 - b1) * g
     v2 = b2 * v + (1.0 - b2) * g * g
     upd = (m2 / (1.0 - b1 ** t)) / (torch.sqrt(v2 / (1.0 - b2 ** t)) + eps)
@@ -54,3 +62,19 @@ def adamw_ref(p, g, m, v, *, lr, beta1=0.9, beta2=0.999, eps=1e-8,
         lr, step, beta1=beta1, beta2=beta2, eps=eps,
         weight_decay=weight_decay, device=p.device))
     return p2, m2, v2
+
+
+def global_norm_ref(leaves) -> torch.Tensor:
+    """The 2-norm of every leaf together, in float32: one ``torch.dot`` a
+    leaf, summed in order."""
+    total = 0
+    for x in leaves:
+        xf = x.float().reshape(-1)
+        total = total + torch.dot(xf, xf)
+    return torch.sqrt(total)
+
+
+def clip_scale_ref(leaves, max_norm: float) -> torch.Tensor:
+    """The global-norm clip's scale, ``min(max_norm / (norm + 1e-9), 1)``
+    as a 0-d float32 tensor."""
+    return torch.clamp(max_norm / (global_norm_ref(leaves) + 1e-9), max=1.0)

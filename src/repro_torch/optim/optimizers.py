@@ -15,10 +15,14 @@ Two quirks of the reference are kept on purpose (ROADMAP.md C2):
 
 Differences of the port: ``update`` writes parameters and optimizer state
 **in place** (and returns them), and ``adam`` / ``adamw`` run through the
-fused AdamW kernel (:mod:`repro_torch.kernels.fused_adam_sync`): one
-launch per leaf on CUDA tensors, its plain version on the CPU.  The
-learning rate, the step and the kernel's ``[6]`` hyperparameter tensor
-stay on the device, so an update reads nothing back to the host.
+fused AdamW kernel (:mod:`repro_torch.kernels.fused_adam_sync`): on CUDA
+tensors one norm pass over the gradients as they are (bfloat16 from a
+plain step, float32 from accumulated microbatches) writes the clip's
+scale on the device, then one launch a leaf applies it as it reads
+``g``, so no float32 copy of the gradients is made; on the CPU their
+plain versions, the reference's arithmetic bit for bit.  The learning
+rate, the step, the clip's scale and the kernel's ``[6]`` hyperparameter
+tensor stay on the device, so an update reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..kernels.fused_adam_sync import fused_adamw
+from ..kernels.fused_adam_sync import (clip_partials, clip_scale,
+                                      fused_adamw)
+from ..kernels.fused_adam_sync.ref import clip_scale_ref, global_norm_ref
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["OptConfig", "Optimizer", "make_optimizer", "lr_schedule"]
@@ -68,16 +74,11 @@ def lr_schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _global_norm(tree: Tree) -> torch.Tensor:
-    total = 0
-    for x in tree_leaves(tree):
-        xf = x.float().reshape(-1)
-        total = total + torch.dot(xf, xf)
-    return torch.sqrt(total)
+    return global_norm_ref(tree_leaves(tree))
 
 
 def _clip(grads: Tree, max_norm: float) -> Tree:
-    g = _global_norm(grads)
-    scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
+    scale = clip_scale_ref(tree_leaves(grads), max_norm)
     return tree_map(lambda x: x.float() * scale, grads)
 
 
@@ -132,6 +133,9 @@ def _make_adam(cfg: OptConfig, decoupled_wd: bool) -> Optimizer:
     # adam's weight_decay is ignored, as in the reference (ROADMAP.md C2)
     wd = cfg.weight_decay if decoupled_wd else 0.0
     consts: dict[torch.device, torch.Tensor] = {}
+    # the norm kernel's partials and scale, one buffer per device and
+    # tree size, made once: a captured period keeps reading it
+    scratch: dict[tuple, torch.Tensor] = {}
 
     def init(params):
         return {"m": tree_map(_zeros_f32, params),
@@ -148,11 +152,24 @@ def _make_adam(cfg: OptConfig, decoupled_wd: bool) -> Optimizer:
         t = (step.float() + 1.0).reshape(1)
         return torch.cat([lr, consts[dev], t])
 
+    def clip_buffer(gs: list) -> torch.Tensor | None:
+        if not gs[0].is_cuda:
+            return None
+        key = (gs[0].device, clip_partials(gs) + 2)
+        if key not in scratch:
+            scratch[key] = torch.empty(key[1], dtype=torch.float32,
+                                       device=key[0])
+        return scratch[key]
+
     def update(grads, state, params, step):
-        g = _f32_grads(grads, cfg)
         h = hyper(step)
-        tree_map(lambda p, gg, m, v: fused_adamw(p, gg.contiguous(), m, v, h),
-                 params, g, state["m"], state["v"])
+        gs = [g.contiguous() for g in tree_leaves(grads)]
+        scale = clip_scale(gs, cfg.grad_clip, clip_buffer(gs)) \
+            if cfg.grad_clip else None
+        for p, g, m, v in zip(tree_leaves(params), gs,
+                              tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), strict=True):
+            fused_adamw(p, g, m, v, h, scale=scale)
         return params, state
 
     return Optimizer(cfg, init, update)

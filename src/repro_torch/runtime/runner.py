@@ -68,7 +68,7 @@ import torch
 
 from ..checkpoint import CheckpointManager, reshard_workers
 from ..core.plans import SyncPlan, local_plan
-from ..kernels.fused_adam_sync import fused_adamw
+from ..kernels.fused_adam_sync import clip_scale, fused_adamw
 from ..kernels.int8_quant import dequantize_rows, quantize_rows
 from ..lint import consumes, hot_path
 from ..spans import PhaseMarks, span
@@ -83,7 +83,7 @@ __all__ = ["RunnerConfig", "Runner", "PeriodGraphStats",
 Tree = Any
 
 # the kernel wrappers whose launch counters say what a captured period holds
-_KERNELS = (fused_adamw, quantize_rows, dequantize_rows)
+_KERNELS = (fused_adamw, clip_scale, quantize_rows, dequantize_rows)
 
 
 def reshard_train_state(state: TrainState, n_workers: int) -> TrainState:
@@ -130,8 +130,9 @@ class PeriodGraphStats:
     drop); ``capture_s``: seconds spent capturing them, outside every
     period's time; ``pool_bytes``: device bytes the captures reserved for
     the graphs' shared memory pool; ``captured_launches``: per make-up
-    key, the kernel launches its graph holds by wrapper name (the
-    wrappers' counters move during a capture, never on a replay), and
+    key, the kernel launches its graph holds by wrapper name (norm passes
+    for ``clip_scale``; the wrappers' counters move during a capture,
+    never on a replay), and
     ``captured_by_shape`` the same for ``quantize_rows`` by ``(rows,
     cols)``; ``replays``: graph replays per make-up key.
     """

@@ -9,6 +9,11 @@ On the CPU:
   against JAX's ``adamw_ref`` (``2e-5``: that oracle rounds the Python
   doubles ``1 - beta`` to float32, the kernels take ``1 - beta`` in
   float32 from their ``[6]`` operand — 1.3e-5 relative in ``1 - beta2``);
+* **the clip in AdamW** — ``fused_adamw_ref(..., scale=s)`` with bfloat16
+  and float32 ``g`` bit for bit the composition it replaced,
+  ``fused_adamw_ref(p, g.float() * s, m, v, h)``; ``adamw.update`` on the
+  CPU bit for bit that composition after the ``torch.dot`` norm, written
+  out here (bfloat16 and float32 grads, and no clip);
 * **optimizers** — one and two ``update`` calls of every optimizer on
   identical worker-stacked grads, with the cross-worker global-norm clip
   and ``adam``'s ignored weight decay (ROADMAP.md C2): float32,
@@ -36,7 +41,10 @@ widths, misaligned rows, the .5 ties on every lane and vector slot);
 fused AdamW float32 ``rtol=atol=1e-6`` and
 bfloat16 within one bfloat16 rounding (the kernel and the plain version
 do the same correctly rounded float32 operations; only ``powf`` in the
-bias corrections may differ in the last place).  Run there with
+bias corrections may differ in the last place), also with bfloat16 ``g``
+and a clip scale; the norm kernel's sum of squares against a float64
+sum (relative ``1e-6``), the same bits on two calls and under a graph
+replay; ``adamw.update`` with no float32 gradient tree on the card.  Run there with
 ``python -m pytest --noconftest -q -m gpu tests/test_torch_*.py``.
 """
 
@@ -49,15 +57,18 @@ from repro_torch.core import outer_opt  # noqa: E402
 from repro_torch.core.partial_sync import (UnitEntry, UnitLayout,  # noqa: E402
                                            sync_units, tree_worker_mean)
 from repro_torch.core.sync_policies import Int8EFSync, OuterOptSync  # noqa: E402
-from repro_torch.kernels.fused_adam_sync import (fused_adamw,  # noqa: E402
+from repro_torch.kernels.fused_adam_sync import (clip_partials,  # noqa: E402
+                                                 clip_scale, clip_scale_ref,
+                                                 fused_adamw,
                                                  fused_adamw_ref)
 from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
                                             quantize_rows)
 from repro_torch.kernels.int8_quant import ops as int8_ops  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.optim.optimizers import lr_schedule  # noqa: E402
 from repro_torch.parallel.compression import (  # noqa: E402
     compressed_worker_mean, dequantize_int8, quantize_int8)
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -148,6 +159,76 @@ def test_cpu_tensors_take_the_plain_versions_and_cuda_impl_raises():
         dequantize_rows(q, s, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         quantize_rows(torch.ones(2, 4), impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the clip folded into AdamW: bit for bit the composition it replaced
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [0.0371, 1.0])
+def test_fused_adamw_ref_scale_equals_scaled_f32_grads(pdtype, gdtype,
+                                                       scale):
+    p, g, m, v = _adam_case((5, 33, 9), 3)
+    pt = _t(p, dtype=getattr(torch, pdtype))
+    gt = _t(g, dtype=getattr(torch, gdtype))
+    s = torch.tensor(scale, dtype=torch.float32)
+    hyper = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 0.1, 4.0])
+    a = [pt.clone(), _t(m), _t(v)]
+    b = [pt.clone(), _t(m), _t(v)]
+    fused_adamw_ref(a[0], gt, a[1], a[2], hyper, s.reshape(1))
+    fused_adamw_ref(b[0], gt.float() * s, b[1], b[2], hyper)
+    for x, y in zip(a, b, strict=True):
+        assert torch.equal(x, y)
+
+
+def _plain_adamw_update(cfg, grads, m, v, params, step):
+    """``adamw.update`` as the port ran it before the clip moved into the
+    kernel: the ``torch.dot`` norm, a float32 copy of every gradient
+    scaled by the clip, then the plain AdamW on each leaf."""
+    leaves = tree_leaves(grads)
+    if cfg.grad_clip:
+        total = 0
+        for x in leaves:
+            xf = x.float().reshape(-1)
+            total = total + torch.dot(xf, xf)
+        s = torch.clamp(cfg.grad_clip / (torch.sqrt(total) + 1e-9), max=1.0)
+        g32 = [x.float() * s for x in leaves]
+    else:
+        g32 = [x.float() for x in leaves]
+    dev = step.device
+    hyper = torch.cat([
+        lr_schedule(cfg, step).reshape(1),
+        torch.tensor([cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay],
+                     dtype=torch.float32, device=dev),
+        (step.float() + 1.0).reshape(1)])
+    for p, g, mm, vv in zip(tree_leaves(params), g32, tree_leaves(m),
+                            tree_leaves(v), strict=True):
+        fused_adamw_ref(p, g.contiguous(), mm, vv, hyper)
+
+
+@pytest.mark.parametrize("dtype,clip", [("bfloat16", 1.0), ("float32", 1.0),
+                                        ("bfloat16", 0.0)])
+def test_adamw_update_on_cpu_equals_plain_composition(dtype, clip):
+    tdt = getattr(torch, dtype)
+    opt = make_optimizer("adamw", lr=1e-2, warmup_steps=3, decay_steps=20,
+                         weight_decay=0.1, grad_clip=clip)
+    params = tree_map(lambda a: _t(a, dtype=tdt), _worker_tree(0))
+    mine = tree_map(torch.clone, params)
+    state = opt.init(mine)
+    ref_m = tree_map(torch.clone, state["m"])
+    ref_v = tree_map(torch.clone, state["v"])
+    for k in range(2):
+        grads = tree_map(lambda a: _t(a, dtype=tdt),
+                         _worker_tree(1 + k, 3.0))
+        step = torch.tensor(k, dtype=torch.int32)
+        mine, state = opt.update(grads, state, mine, step)
+        _plain_adamw_update(opt.cfg, grads, ref_m, ref_v, params, step)
+    for got, want in ((mine, params), (state["m"], ref_m),
+                      (state["v"], ref_v)):
+        for x, y in zip(tree_leaves(got), tree_leaves(want), strict=True):
+            assert x.dtype == y.dtype and torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +557,156 @@ class TestCudaKernels:
         tol = 1e-6 if dtype == "float32" else 8e-3
         for x, y in zip(a, b, strict=True):
             np.testing.assert_allclose(_np(x), _np(y), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("n", [1, 7, 1024, 1000003])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_fused_adamw_kernel_scaled_matches_ref(self, cuda, n, dtype,
+                                                   gdtype, offset):
+        """g in its own dtype and the clip's scale read on the device,
+        against the plain version at the kernel test's tolerance."""
+        p, g, m, v = _adam_case((n + offset,), n)
+        tdt, gdt = getattr(torch, dtype), getattr(torch, gdtype)
+        hyper = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 0.1, 7.0],
+                             device=cuda)
+        scale = torch.tensor([0.0371], device=cuda)
+        a = [_t(p, cuda, tdt)[offset:], _t(g, cuda, gdt)[offset:]] + [
+            _t(x, cuda)[offset:] for x in (m, v)]
+        b = [x.clone() for x in a]
+        before = (fused_adamw.launches, fused_adamw.scaled_launches)
+        fused_adamw(*a, hyper, scale=scale)
+        torch.cuda.synchronize()
+        assert (fused_adamw.launches, fused_adamw.scaled_launches) == \
+            (before[0] + 1, before[1] + 1)
+        fused_adamw(*b, hyper, scale=scale, impl="ref")
+        tol = 1e-6 if dtype == "float32" else 8e-3
+        for x, y in zip(a, b, strict=True):
+            np.testing.assert_allclose(_np(x), _np(y), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("shapes", [
+        # granite's leaves, worker-stacked, at small widths
+        [(4, 1000, 64), (4, 3, 64), (4, 3, 64, 64), (4, 3, 64, 16),
+         (4, 3, 64, 256), (4, 3, 256, 64), (4, 64)],
+        [(7,)], [(1000003,)], [(5, 33, 9), (1,), (4099,)]])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_clip_scale_kernel_matches_float64(self, cuda, shapes, dtype,
+                                               offset):
+        """The norm kernel's sum of squares against a float64 sum,
+        relative 1e-6; offset 1 (2 or 4 bytes) takes the scalar loads."""
+        rng = np.random.default_rng(len(shapes) + offset)
+        leaves = []
+        for shape in shapes:
+            n = int(np.prod(shape))
+            buf = _t((rng.standard_normal(n + offset) * 3).astype(
+                np.float32), cuda, getattr(torch, dtype))
+            leaves.append(buf[offset:].view(shape))
+        scratch = torch.empty(clip_partials(leaves) + 2, device=cuda)
+        before = clip_scale.launches
+        scale = clip_scale(leaves, 1.0, scratch)
+        torch.cuda.synchronize()
+        assert clip_scale.launches == before + 1
+        want = sum(float((x.double() ** 2).sum()) for x in leaves)
+        got = float(scratch[-1])
+        assert abs(got - want) <= 1e-6 * want, (got, want)
+        norm = want ** 0.5
+        assert abs(float(scale) - 1.0 / (norm + 1e-9)) \
+            <= 1e-6 / (norm + 1e-9)
+        ref = float(clip_scale_ref(leaves, 1.0))
+        assert abs(float(scale) - ref) <= 1e-6 * ref
+        # a norm under max_norm does not scale
+        assert float(clip_scale(leaves, 2.0 * norm, scratch)) == 1.0
+
+    def test_clip_scale_kernel_same_bits_twice_and_replayed(self, cuda):
+        gen = torch.Generator(cuda).manual_seed(3)
+        leaves = [torch.randn(shape, generator=gen, device=cuda).to(dt)
+                  for shape, dt in (((4, 3, 64, 256), torch.bfloat16),
+                                    ((4, 1000, 64), torch.bfloat16),
+                                    ((4, 3, 64), torch.float32),
+                                    ((1000003,), torch.float32))]
+        scratch = torch.empty(clip_partials(leaves) + 2, device=cuda)
+        first = clip_scale(leaves, 1.0, scratch).clone()
+        total = scratch[-1].clone()
+        second = clip_scale(leaves, 1.0, scratch).clone()
+        assert torch.equal(first, second) and torch.equal(total,
+                                                          scratch[-1])
+        side = torch.cuda.Stream(cuda)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):            # warm up off the capture
+            clip_scale(leaves, 1.0, scratch)
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = clip_scale(leaves, 1.0, scratch)
+        scratch.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first) and torch.equal(scratch[-1], total)
+
+    @pytest.mark.parametrize("dtype,clip", [("bfloat16", 1.0),
+                                            ("float32", 1.0),
+                                            ("bfloat16", 0.0)])
+    def test_adamw_update_on_cuda_makes_no_f32_grad_tree(self, cuda, dtype,
+                                                         clip):
+        """The norm and the scaled AdamW read the gradients as they are:
+        the peak rises by less than one leaf in float32.  The result is
+        the plain composition's within the kernel test's tolerance."""
+        tdt = getattr(torch, dtype)
+        gen = torch.Generator(cuda).manual_seed(5)
+        shapes = {"embed": (4, 1000, 64), "gate": (4, 3, 64, 1024),
+                  "down": (4, 3, 1024, 64), "ln": (4, 3, 64)}
+
+        def tree(scale=1.0):
+            return {k: (torch.randn(s, generator=gen, device=cuda) * scale)
+                    .to(tdt) for k, s in shapes.items()}
+
+        opt = make_optimizer("adamw", lr=1e-2, warmup_steps=3,
+                             weight_decay=0.1, grad_clip=clip)
+        params = tree()
+        ref_p = tree_map(torch.clone, params)
+        state = opt.init(params)
+        ref_m = tree_map(torch.clone, state["m"])
+        ref_v = tree_map(torch.clone, state["v"])
+        steps = [torch.tensor(k, dtype=torch.int32, device=cuda)
+                 for k in range(2)]
+        grads = [tree(3.0), tree(3.0)]
+        params, state = opt.update(grads[0], state, params, steps[0])
+        torch.cuda.synchronize()
+        largest = max(x.numel() for x in tree_leaves(params)) * 4
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        before = (fused_adamw.launches, fused_adamw.scaled_launches,
+                  clip_scale.launches)
+        params, state = opt.update(grads[1], state, params, steps[1])
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated(cuda) - base < largest
+        n = len(shapes)
+        assert (fused_adamw.launches - before[0],
+                fused_adamw.scaled_launches - before[1],
+                clip_scale.launches - before[2]) == (
+            n, n if (clip or dtype != "float32") else 0, int(bool(clip)))
+        for g, step in zip(grads, steps, strict=True):
+            _plain_adamw_update(opt.cfg, g, ref_m, ref_v, ref_p, step)
+        tol = 1e-6 if dtype == "float32" else 8e-3
+        _tree_close(params, ref_p, tol, tol)
+        _tree_close(state["m"], ref_m, 1e-5, 1e-6)
+        _tree_close(state["v"], ref_v, 1e-5, 1e-6)
+
+    def test_scaled_wrappers_reject_what_the_kernels_do_not_take(self,
+                                                                 cuda):
+        p = torch.zeros(8, device=cuda)
+        h = torch.zeros(6, device=cuda)
+        with pytest.raises(TypeError):
+            fused_adamw(p, p.half(), p.clone(), p.clone(), h)
+        with pytest.raises(ValueError, match="scale"):
+            fused_adamw(p, p.clone(), p.clone(), p.clone(), h,
+                        scale=torch.ones(2, device=cuda))
+        with pytest.raises(ValueError, match="scratch"):
+            clip_scale([p], 1.0, torch.empty(1, device=cuda))
+        with pytest.raises(ValueError, match="contiguous"):
+            clip_scale([torch.zeros(4, 8, device=cuda).t()], 1.0,
+                       torch.empty(3, device=cuda))
 
     @pytest.mark.parametrize("r,c", [
         (1, 8), (5, 13), (77, 33), (64, 2048), (4097, 8192),
