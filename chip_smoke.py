@@ -317,12 +317,31 @@ code is non-zero):
    ``max_memory_allocated`` over one call and the roofline time against
    the call's held median, as ratios; the kernels each call launched
    (flash in prefill, fused AdamW in train).
+33. ``grouped_gemm`` / ``moonlight_train`` — the held, dropless expert
+   layer's grouped products (``grouped_gemm``) at the
+   ``moonlight-train-dreamddp`` cell's shapes (``GROUPED_*``: 8192 x 6
+   rows, 8 held experts, gate+up and down), in all three layouts, with
+   the rows routed evenly, with empty groups and with one group holding
+   every row: each against ``ref.py`` in float32 on the same bf16 values
+   element by element at ``TOL[bfloat16]`` plus 16 sqrt(n) 2^-24 of the
+   sum of the terms' sizes (float32 sums of n terms in another order; a
+   wrong tile is off by the outputs' own size), rows past the last group
+   and an empty group's dW
+   exactly zero, then the kernel's, the plain version's and
+   ``torch._grouped_mm``'s times and the bound of the rows routed.  Then
+   Moonlight's smoke model in bfloat16 trained through the compiled
+   runner (``Session.fit``, ``dreamddp``): ``grouped_gemm.launches``
+   set to 0 just before the fit and read after, with the replays
+   reckoned in, against 8 a MoE layer a worker step (forward, the
+   checkpointed block's recomputed forward, dgrad and wgrad of both
+   products), and ``routed_rows`` against every (token, choice) pair.
 
 Then a ``wall`` line (the script's seconds from ``main``'s start),
 one ``{"kernels": [...]}`` line (each kernel's cases, the path whose run
 gave its launches — ``serve``, ``train``, ``mamba2_serve``,
 ``moe_serve``, ``rg_serve``, ``whisper_serve``, ``llava_serve``,
-``qwen3_serve``, ``phi4_serve``, ``qwen25_serve`` — fused AdamW's on
+``qwen3_serve``, ``phi4_serve``, ``qwen25_serve``,
+``moonlight_train`` — fused AdamW's on
 the async path too, as ``launches_async_train``, and on Mamba-2 at
 width as ``launches_mamba2_train``, the training kernels' in
 ``mla_reference``'s, ``rg_reference``'s and ``mamba2_reference``'s fits
@@ -363,9 +382,9 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.api import JobConfig, Session  # noqa: E402
 from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
                                  granite_3_2b, llava_next_34b, mamba2_780m,
-                                 phi4_mini_3_8b, qwen2_5_32b, qwen3_1_7b,
-                                 qwen3_moe_30b_a3b, recurrentgemma_9b,
-                                 whisper_medium)
+                                 moonlight_16b_a3b, phi4_mini_3_8b,
+                                 qwen2_5_32b, qwen3_1_7b, qwen3_moe_30b_a3b,
+                                 recurrentgemma_9b, whisper_medium)
 from repro_torch.core.partial_sync import (contiguous_ranges,  # noqa: E402
                                            worker_unstack)
 from repro_torch.kernels import _build  # noqa: E402
@@ -375,6 +394,8 @@ from repro_torch.kernels.fused_adam_sync import (clip_partials,  # noqa: E402
                                                  clip_scale, clip_scale_ref,
                                                  fused_adamw)
 from repro_torch.kernels.fused_adam_sync.ops import adamw_cost  # noqa: E402
+from repro_torch.kernels.grouped_gemm import (grouped_cost,  # noqa: E402
+                                              grouped_gemm, grouped_gemm_ref)
 from repro_torch.kernels.int8_quant import (dequantize_rows,  # noqa: E402
                                             quantize_rows)
 from repro_torch.kernels.int8_quant.ops import int8_cost  # noqa: E402
@@ -3717,6 +3738,190 @@ def dense_serve(phase: str, module, n_params: int) -> tuple[dict, dict]:
     return result, profile
 
 
+# ---------------------------------------------------------- grouped GEMM
+
+# moonlight-train-dreamddp's held expert layer: T k = 8192 x 6 rows a
+# worker step, 8 held experts, gate+up (K 2048, N 2 x 1408) and down
+# (K 1408, N 2048)
+GROUPED_ROWS, GROUPED_G = 8192 * 6, 8
+GROUPED_SHAPES = (("gate_up", 2048, 2816), ("down", 1408, 2048))
+GROUPED_KINDS = ("routed", "empty", "all_in_one")
+
+
+def grouped_offsets(kind: str, M: int, G: int, gen) -> torch.Tensor:
+    """Offsets ``[G + 1]`` int32 on the card: ~``M / (8 G)`` rows a group
+    (an eighth of the pairs held, as in the cell), the same with groups
+    0, 3 and ``G - 1`` empty, or one group holding all ``M`` rows."""
+    if kind == "all_in_one":
+        counts = [0] * G
+        counts[G // 2] = M
+    else:
+        counts = torch.randint(M // (10 * G), M // (6 * G), (G,),
+                               generator=gen).tolist()
+        if kind == "empty":
+            counts[0] = counts[3] = counts[G - 1] = 0
+    offs = [0]
+    for c in counts:
+        offs.append(offs[-1] + c)
+    return torch.tensor(offs, dtype=torch.int32, device="cuda")
+
+
+def _grouped_library(layout: str, a, b, offs, end: int):
+    """``torch._grouped_mm`` over the routed rows, or None where the
+    card's torch lacks it."""
+    lib = getattr(torch, "_grouped_mm", None)
+    if lib is None:
+        return None
+    ends = offs[1:]
+    if layout == "fwd":
+        x = a[:end]
+        return lambda: lib(x, b, offs=ends)
+    if layout == "dgrad":
+        x, wt = a[:end], b.transpose(1, 2)
+        return lambda: lib(x, wt, offs=ends)
+    xt, dy = a[:end].t(), b[:end]
+    return lambda: lib(xt, dy, offs=ends)
+
+
+def check_grouped_gemm() -> dict:
+    """Phase 33's kernel checks: every shape x layout x kind, the first
+    (gate+up forward, rows routed) the kernels line's row."""
+    gen = torch.Generator().manual_seed(31)
+    M, G = GROUPED_ROWS, GROUPED_G
+    atol, rtol = TOL[torch.bfloat16]
+    checks = []
+    for kind in GROUPED_KINDS:
+        offs = grouped_offsets(kind, M, G, gen)
+        end = int(offs[-1])
+        for name, K, N in GROUPED_SHAPES:
+            x = torch.randn(M, K, generator=gen).to("cuda", torch.bfloat16)
+            w = (torch.randn(G, K, N, generator=gen) * 0.02).to(
+                "cuda", torch.bfloat16)
+            dy = torch.randn(M, N, generator=gen).to("cuda", torch.bfloat16)
+            for layout, a, b in (("fwd", x, w), ("dgrad", dy, w),
+                                 ("wgrad", x, dy)):
+                got = grouped_gemm(a, b, offs, layout, impl="cuda")
+                want32 = grouped_gemm_ref(a.float(), b.float(), offs,
+                                          layout)
+                what = f"grouped_gemm {name} {layout} {kind}"
+                if got.dtype != torch.bfloat16 \
+                        or got.shape != want32.shape \
+                        or not torch.isfinite(got.float()).all():
+                    raise RuntimeError(f"{what}: output {got.dtype} "
+                                       f"{tuple(got.shape)} or non-finite")
+                # float32 sums over n terms (K, N, or a group's rows in
+                # wgrad) differ by order by ~sqrt(n) 2^-24 of the sum of
+                # the terms' sizes (``mag``); 16x that, beside TOL's room
+                # for the bf16 output: a wrong tile is off by |want|
+                n = max(int(offs[g + 1] - offs[g]) for g in range(G)) \
+                    if layout == "wgrad" else a.shape[1]
+                mag = grouped_gemm_ref(a.float().abs(), b.float().abs(),
+                                       offs, layout)
+                sum_tol = 16 * math.sqrt(n) * 2.0 ** -24
+                diff = (got.float() - want32).abs()
+                room = atol + rtol * want32.abs() + sum_tol * mag
+                worst = int((diff - room).argmax())
+                excess = float((diff - room).view(-1)[worst])
+                err = diff.max().item()
+                if excess > 0:
+                    at = [float(t.view(-1)[worst]) for t in
+                          (got.float(), want32, mag)]
+                    raise RuntimeError(
+                        f"{what}: max abs err {err}; beyond atol {atol} + "
+                        f"rtol {rtol} + {sum_tol:.3g} x sum of |terms| at "
+                        f"got {at[0]}, want {at[1]}, sum of |terms| {at[2]}")
+                del mag, room
+                if layout != "wgrad" and got[end:].any():
+                    raise RuntimeError(f"{what}: rows past the last group "
+                                       "are not zero")
+                empty = [g for g in range(G) if offs[g] == offs[g + 1]]
+                if layout == "wgrad" and any(got[g].any() for g in empty):
+                    raise RuntimeError(f"{what}: an empty group's dW is "
+                                       "not zero")
+                del got, want32, diff
+                cost = grouped_cost(end, G, K, N)
+                b_ms, b_by = bound(cost.nbytes,
+                                   (cost.flops, torch.bfloat16))
+                ms = median_ms(lambda: grouped_gemm(a, b, offs, layout,
+                                                    impl="cuda"))
+                library = _grouped_library(layout, a, b, offs, end)
+                try:
+                    library_ms = median_ms(library) if library else None
+                except RuntimeError as e:
+                    library_ms = f"refused: {str(e)[:160]}"
+                row = {
+                    "shape": f"{name}: M {M}, G {G}, K {K}, N {N}, rows "
+                             f"{end} ({kind})",
+                    "layout": layout, "dtype": "bfloat16", "rows": end,
+                    "empty_groups": len(empty),
+                    "max_abs_err": err, "atol": atol, "rtol": rtol,
+                    "sum_tol": sum_tol, "ms": ms,
+                    "plain_ms": median_ms(
+                        lambda: grouped_gemm_ref(a, b, offs, layout),
+                        reps=5, hold=False),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "share_of_bound": b_ms / ms,
+                    "library_ms": library_ms,
+                    "bytes": cost.nbytes, "flops": cost.flops,
+                }
+                emit({"phase": "kernel", "name": "grouped_gemm", **row})
+                checks.append(row)
+            del x, w, dy
+        _free()
+    return {"name": "grouped_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "replaces": "src/repro/models/moe.py:99 (capacity einsums: no "
+                        "TPU kernel; the port's dropless layer)",
+            "checks": checks}
+
+
+def moonlight_train() -> dict:
+    """Phase 33's path: Moonlight's smoke model (1 dense + 2 MoE layers,
+    8 experts, top-2) in bfloat16, ``dreamddp`` through the compiled
+    runner, 2 workers x 2 x 16 tokens, H = 2, three periods (the first
+    eager, then one capture and two replays).  ``grouped_gemm.launches``
+    is set to 0 just before the fit; the run's launches are the wrapper's
+    count less the capture's, plus the replays x what the graph holds."""
+    cfg = dataclasses.replace(moonlight_16b_a3b.SMOKE,
+                              param_dtype="bfloat16")
+    model = DecoderLM(cfg)
+    W, H, b, s, steps = 2, 2, 2, 16, 6
+    sess = Session(JobConfig(arch="moonlight-16b-a3b", smoke=True,
+                             algo="dreamddp", workers=W, period=H, seq=s,
+                             batch_per_worker=b, period_exec="compiled"),
+                   model=model, device="cuda")
+    sess.state
+    grouped_gemm.launches = 0
+    t0 = time.perf_counter()
+    sess.fit(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = sess.runner.graph_stats
+    held = stats.captured_launches.get((), {}).get("grouped_gemm", 0)
+    launches = grouped_gemm.launches + (stats.replays[()] - 1) * held
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    want = 8 * n_moe * W * steps
+    routed = int(model.routed_rows.total.sum())
+    pairs = steps * W * b * s * cfg.moe.top_k * n_moe
+    losses = [h["loss"] for h in sess.history]
+    if stats.graphs != 1 or stats.replays[()] != steps // H - 1 \
+            or launches != want or routed != pairs \
+            or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"moonlight_train: {stats.graphs} graphs, "
+                           f"{dict(stats.replays)} replays, grouped_gemm "
+                           f"launches {launches} (want {want}), routed "
+                           f"rows {routed} (want {pairs}), losses {losses}")
+    out = {"phase": "moonlight_train", "steps": steps, "workers": W,
+           "moe_layers": n_moe, "graphs": stats.graphs,
+           "replays": stats.replays[()],
+           "grouped_gemm_per_replay": held,
+           "launches": {"grouped_gemm": launches},
+           "routed_rows": routed, "losses": losses, "wall_s": wall}
+    del sess, model
+    _free()
+    return out
+
+
 # ---------------------------------------------------------------- dry run
 
 # production cells the dry run traces on meta tensors within the time
@@ -4068,6 +4273,11 @@ def main() -> int:
         emit(result)
         emit(profile)
         rows += kernel_rows(kernels, result["launches"], phase)
+
+    kernels = [check_grouped_gemm()]
+    result = moonlight_train()
+    emit(result)
+    rows += kernel_rows(kernels, result["launches"], "moonlight_train")
 
     _free()
     result = dryrun(ROOT / "build" / "dryrun")

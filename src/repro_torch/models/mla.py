@@ -24,7 +24,9 @@ Differences from the reference:
   so the port has no such call;
 * the query chunks of a long full pass are recomputed in the backward
   pass only when gradients are on (the reference always wraps them in
-  ``jax.checkpoint``, which changes no value).
+  ``jax.checkpoint``, which changes no value);
+* ``q_lora_rank=None`` projects the queries with one ``w_q`` (Moonlight's
+  attention); the reference always has the query LoRA.
 
 No CUDA kernel runs here: the expanded prefill has ``qk_dim`` (192) !=
 ``v_head_dim`` (128), outside the flash kernel's contract, and the
@@ -57,7 +59,7 @@ _NEG_INF = -1e30
 @dataclass(frozen=True)
 class MLAConfig:
     n_heads: int = 128
-    q_lora_rank: int = 1536
+    q_lora_rank: int | None = 1536       # None: queries projected directly
     kv_lora_rank: int = 512
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
@@ -73,14 +75,22 @@ def mla_init(gen: torch.Generator, cfg: MLAConfig, d_model: int, *,
              dtype=torch.bfloat16, stack: tuple = ()) -> Tree:
     """The reference's layout and scales (``w_*`` bare tensors ``[*stack,
     d_in, d_out]``, ``q_norm`` / ``kv_norm`` ``{"scale"}``); the draws
-    differ from JAX's."""
+    differ from JAX's.  Without a query LoRA (``q_lora_rank=None``,
+    Moonlight's and DeepSeek-V2-Lite's form) one ``w_q [*stack, d_in,
+    heads * qk_dim]`` takes the place of ``w_dq`` / ``q_norm`` /
+    ``w_uq``."""
     h, rq, rkv = cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
     s = d_model ** -0.5
     dev = gen.device
+    if rq is None:
+        q = {"w_q": normal(gen, (*stack, d_model, h * cfg.qk_dim), s, dtype)}
+    else:
+        q = {"w_dq": normal(gen, (*stack, d_model, rq), s, dtype),
+             "q_norm": norm_init(rq, dtype=dtype, stack=stack, device=dev),
+             "w_uq": normal(gen, (*stack, rq, h * cfg.qk_dim), rq ** -0.5,
+                            dtype)}
     return {
-        "w_dq": normal(gen, (*stack, d_model, rq), s, dtype),
-        "q_norm": norm_init(rq, dtype=dtype, stack=stack, device=dev),
-        "w_uq": normal(gen, (*stack, rq, h * cfg.qk_dim), rq ** -0.5, dtype),
+        **q,
         "w_dkv": normal(gen, (*stack, d_model, rkv + cfg.qk_rope_dim), s,
                         dtype),
         "kv_norm": norm_init(rkv, dtype=dtype, stack=stack, device=dev),
@@ -93,17 +103,24 @@ def mla_init(gen: torch.Generator, cfg: MLAConfig, d_model: int, *,
     }
 
 
-def mla_specs() -> Tree:
+def mla_specs(cfg: MLAConfig) -> Tree:
     """Logical axes of :func:`mla_init`'s leaves (one unstacked layer)."""
-    return {"w_dq": (None, None), "q_norm": {"scale": (None,)},
-            "w_uq": (None, "heads"), "w_dkv": (None, None),
+    if cfg.q_lora_rank is None:
+        q = {"w_q": (None, "heads")}
+    else:
+        q = {"w_dq": (None, None), "q_norm": {"scale": (None,)},
+             "w_uq": (None, "heads")}
+    return {**q, "w_dkv": (None, None),
             "kv_norm": {"scale": (None,)}, "w_uk": (None, "heads"),
             "w_uv": (None, "heads"), "w_o": ("heads", None)}
 
 
 def _project_q(p, cfg: MLAConfig, x, positions, inv_freq):
     b, s, _ = x.shape
-    q = rms_norm(p["q_norm"], x @ p["w_dq"]) @ p["w_uq"]
+    if cfg.q_lora_rank is None:
+        q = x @ p["w_q"]
+    else:
+        q = rms_norm(p["q_norm"], x @ p["w_dq"]) @ p["w_uq"]
     q = q.reshape(b, s, cfg.n_heads, cfg.qk_dim)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, inv_freq)
@@ -268,8 +285,11 @@ def mla_decode_paged(p, cfg: MLAConfig, x: torch.Tensor, pages: dict,
 
 def mla_param_count(cfg: MLAConfig, d_model: int) -> int:
     h = cfg.n_heads
-    n = d_model * cfg.q_lora_rank + cfg.q_lora_rank                 # dq+norm
-    n += cfg.q_lora_rank * h * cfg.qk_dim                           # uq
+    if cfg.q_lora_rank is None:
+        n = d_model * h * cfg.qk_dim                                # q
+    else:
+        n = d_model * cfg.q_lora_rank + cfg.q_lora_rank             # dq+norm
+        n += cfg.q_lora_rank * h * cfg.qk_dim                       # uq
     n += d_model * (cfg.kv_lora_rank + cfg.qk_rope_dim)             # dkv
     n += cfg.kv_lora_rank                                           # kv norm
     n += cfg.kv_lora_rank * h * (cfg.qk_nope_dim + cfg.v_head_dim)  # uk+uv
@@ -281,7 +301,8 @@ def mla_fwd_flops(cfg: MLAConfig, d_model: int, tokens: int,
                   seq_len: int) -> float:
     """Forward FLOPs of full-expansion MLA over ``tokens`` (train/prefill)."""
     h = cfg.n_heads
-    proj = mla_param_count(cfg, d_model) - cfg.q_lora_rank - cfg.kv_lora_rank
+    proj = mla_param_count(cfg, d_model) - (cfg.q_lora_rank or 0) \
+        - cfg.kv_lora_rank                                          # no norms
     flops = 2.0 * tokens * proj                                    # projections
     flops += 2.0 * tokens * seq_len * h * (cfg.qk_dim + cfg.v_head_dim)
     return flops

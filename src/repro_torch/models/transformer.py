@@ -56,8 +56,8 @@ from .layers import (apply_rope, dense, dense_init, dense_spec, embed,
 from .mla import (MLAConfig, mla_apply_full, mla_decode, mla_decode_paged,
                   mla_fwd_flops, mla_init, mla_init_cache,
                   mla_init_paged_cache, mla_param_count, mla_specs)
-from .moe import (MoEConfig, moe_active_param_count, moe_apply, moe_fwd_flops,
-                  moe_init, moe_param_count, moe_specs)
+from .moe import (MoEConfig, RoutedRows, moe_active_param_count, moe_apply,
+                  moe_fwd_flops, moe_init, moe_param_count, moe_specs)
 
 __all__ = ["LMConfig", "DecoderLM"]
 
@@ -133,6 +133,12 @@ class DecoderLM:
 
     def __init__(self, cfg: LMConfig):
         self.cfg = cfg
+        # the dropless expert layer's rows per held expert, counted once a
+        # forward of a training or full-sequence pass (not in serving)
+        self.routed_rows = None
+        if cfg.moe is not None and cfg.moe.dropless:
+            n_moe = cfg.n_layers - cfg.n_dense_layers
+            self.routed_rows = RoutedRows(n_moe, cfg.moe.held[1])
 
     # ------------------------------------------------------------------ init
     def _attn_init(self, g: torch.Generator, stack: tuple) -> Tree:
@@ -203,7 +209,7 @@ class DecoderLM:
         cfg = self.cfg
         ln = norm_spec(bias=cfg.norm_kind == "layernorm")
         if cfg.mla is not None:
-            attn = mla_specs()
+            attn = mla_specs(cfg.mla)
         else:
             attn = {"wq": dense_spec(None, "heads", bias=cfg.qkv_bias),
                     "wk": dense_spec(None, "heads", bias=cfg.qkv_bias),
@@ -270,7 +276,8 @@ class DecoderLM:
         x = x + attend(group, i, p["attn"], self._norm(p["ln1"], x))
         h = self._norm(p["ln2"], x)
         if kind == "moe":
-            return x + moe_apply(p["mlp"], self.cfg.moe, h)
+            return x + moe_apply(p["mlp"], self.cfg.moe, h,
+                                 rows=self.routed_rows, layer=i)
         return x + mlp_apply(p["mlp"], h, kind=self.cfg.mlp_kind)
 
     def _blocks(self, params, x, attend, *, remat: bool = False):
@@ -281,6 +288,8 @@ class DecoderLM:
         for group, kind, n in self.cfg.runs():
             for i in range(n):
                 p = _layer(params[group], i)
+                if kind == "moe" and self.routed_rows is not None:
+                    self.routed_rows.arm(i)     # counted once, not on remat
                 if remat:
                     # no RNG state to keep (the model has no dropout), and
                     # saving it is not allowed while a CUDA graph captures
@@ -620,7 +629,9 @@ class DecoderLM:
 
         ``mode="decode"`` charges one-token steps against a ``seq``-deep KV
         cache (serving shapes); an MoE block's capacity is charged at
-        ``seq`` in both modes, as the reference does."""
+        ``seq`` in both modes, as the reference does.  A dropless held
+        MoE block is charged the bytes of the experts it holds and its
+        active FLOPs (:func:`~repro_torch.models.moe.moe_fwd_flops`)."""
         cfg = self.cfg
         tokens = batch * seq if mode == "train" else batch
         out = [("embed", float(cfg.vocab * cfg.d_model),

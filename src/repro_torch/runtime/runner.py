@@ -69,6 +69,7 @@ import torch
 from ..checkpoint import CheckpointManager, reshard_workers
 from ..core.plans import SyncPlan, local_plan
 from ..kernels.fused_adam_sync import clip_scale, fused_adamw
+from ..kernels.grouped_gemm import grouped_gemm
 from ..kernels.int8_quant import dequantize_rows, quantize_rows
 from ..lint import consumes, hot_path
 from ..spans import PhaseMarks, span
@@ -83,7 +84,8 @@ __all__ = ["RunnerConfig", "Runner", "PeriodGraphStats",
 Tree = Any
 
 # the kernel wrappers whose launch counters say what a captured period holds
-_KERNELS = (fused_adamw, clip_scale, quantize_rows, dequantize_rows)
+_KERNELS = (fused_adamw, clip_scale, quantize_rows, dequantize_rows,
+            grouped_gemm)
 
 
 def reshard_train_state(state: TrainState, n_workers: int) -> TrainState:
